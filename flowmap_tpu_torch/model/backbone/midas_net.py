@@ -10,8 +10,7 @@ and layout mapping. Layout is NCHW. Details kept from the JAX package:
   the bottom and right (PyTorch's symmetric `padding=` would be wrong);
 - batch-statistics BatchNorm in f32 with the two-pass variance and eps 1e-3,
   or BN folded into the preceding conv's bias (`bn="folded"`);
-- ReLU6 is a clip written as max/min, whose gradient splits at ties like
-  `jnp.clip`'s;
+- ReLU6 is a clip whose gradient splits at ties like `jnp.clip`'s;
 - each FeatureFusion block applies its 1x1 conv before the
   align_corners=True x2 upsample (exact: the conv commutes with the convex
   interpolation weights);
@@ -21,11 +20,15 @@ and layout mapping. Layout is NCHW. Details kept from the JAX package:
   With the "exp" depth mapping there is no final ReLU.
 
 Parameters stay float32; the forward casts them to the input's dtype
-(`compute_dtype`), as the JAX package casts its parameter tree.
+(`compute_dtype`), as the JAX package casts its parameter tree. Activations
+are channels_last: cuDNN then takes the depthwise convolutions and the
+upsample runs PyTorch's NHWC kernel (the NCHW bf16 depthwise and upsample
+kernels are several times slower).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Literal, Optional
 
 import numpy as np
@@ -108,8 +111,26 @@ def _bn(bn: Optional[BatchNorm], x):
     return x if bn is None else bn(x)
 
 
+class _ReLU6(torch.autograd.Function):
+    """clip(x, 0, 6) with `jnp.clip`'s gradient: 1 inside, 0 outside, and 1/2
+    at x == 0 or x == 6 (where PyTorch's clamp gives 1), written as
+    (sign(x) - sign(x - 6)) / 2 in the backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.clamp(0.0, 6.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        d = torch.sign(x)
+        d.sub_(torch.sign(x - 6.0)).mul_(0.5)
+        return g * d
+
+
 def relu6(x):
-    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
+    return _ReLU6.apply(x)
 
 
 class MBConv(nn.Module):
@@ -207,17 +228,25 @@ _UP2_B = np.asarray(
 )
 
 
+@functools.lru_cache(maxsize=8)
+def _up2_b(device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_UP2_B, device=device)
+
+
 def head_parity_kernel(w2: torch.Tensor) -> torch.Tensor:
     """(cout, cin, 3, 3) conv2 -> (4*cout, cin, 3, 3) f32 phase kernel,
     output channel (2p + q) * cout + o."""
-    b = torch.as_tensor(_UP2_B, device=w2.device)
+    b = _up2_b(w2.device)
     k = torch.einsum("pad,qbe,oide->pqoiab", b, b, w2.float())
     cout, cin = w2.shape[:2]
     return k.reshape(4 * cout, cin, 3, 3)
 
 
+@functools.lru_cache(maxsize=64)
 def _interp_matrix(size_out, size_in, align_corners, dtype, device):
-    """Dense (out, in) bilinear interpolation matrix (2 nonzeros per row)."""
+    """Dense (out, in) bilinear interpolation matrix (2 nonzeros per row),
+    built once per shape, dtype and device (a host-to-device copy per call
+    would stall the stream)."""
     if align_corners:
         src = np.arange(size_out) * ((size_in - 1) / max(size_out - 1, 1))
     else:
@@ -252,8 +281,7 @@ def _head_strips(zt, zb, zl, zr, w2, b2, w3, b3, h, w):
 
     ax = _interp_matrix(2 * w, w, False, dtype, zt.device)
     ay = _interp_matrix(2 * h, h, False, dtype, zt.device)
-    q1 = torch.tensor(0.25, dtype=dtype, device=zt.device)
-    q3 = torch.tensor(0.75, dtype=dtype, device=zt.device)
+    q1, q3 = 0.25, 0.75  # exact in bf16
 
     def mix_lo(z, dim):  # rows/cols 0..2 of the upsample near the low edge
         a, b = z.narrow(dim, 0, 1), z.narrow(dim, 1, 1)
@@ -293,7 +321,7 @@ def head_forward(path1: torch.Tensor, head: nn.ModuleDict) -> torch.Tensor:
     w3 = head["conv3"].weight[0, :, 0, 0].to(dtype)
     b3 = head["conv3"].bias[0].to(dtype)
 
-    y4 = head_interior(path1, k1, b1, head_parity_kernel(w2), b2, w3, b3)
+    y4 = head_interior(path1.contiguous(), k1, b1, head_parity_kernel(w2), b2, w3, b3)
     y_main = y4.reshape(n, 2, 2, h, w).permute(0, 3, 1, 4, 2).reshape(n, 2 * h, 2 * w)
 
     def band(x, pad_w, pad_h):
@@ -333,7 +361,7 @@ class MidasSmall(nn.Module):
 
         The features feed the correspondence MLP; the head output feeds the
         depth mapping (reference `backbone_midas.py:57-58`)."""
-        l1, l2, l3, l4 = self.encoder(images)
+        l1, l2, l3, l4 = self.encoder(images.contiguous(memory_format=torch.channels_last))
         s = self.scratch
         path4 = self.refinenet4(s["layer4_rn"](l4))
         path3 = self.refinenet3(path4, s["layer3_rn"](l3))

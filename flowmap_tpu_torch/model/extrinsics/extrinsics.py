@@ -8,6 +8,7 @@ Procrustes subset is the static linspace of pixel indices
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Literal, Optional
 
@@ -55,15 +56,19 @@ def _scipy_quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return quaternion_to_matrix(torch.cat([q[..., 3:4], q[..., :3]], dim=-1))
 
 
+@functools.lru_cache(maxsize=16)
+def _linspace_indices(num_points: int, size: int, device: torch.device) -> torch.Tensor:
+    """The static subset, copied to the device once."""
+    return torch.as_tensor(np.linspace(0, size - 1, num_points).astype(np.int64), device=device)
+
+
 def procrustes_indices(cfg: ExtrinsicsProcrustesCfg, h: int, w: int, device,
                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
     if cfg.num_points is None:
         return torch.arange(h * w, device=device)
     if cfg.randomize_points:
         return torch.randint(0, h * w, (cfg.num_points,), generator=generator).to(device)
-    return torch.as_tensor(
-        np.linspace(0, h * w - 1, cfg.num_points).astype(np.int64), device=device
-    )
+    return _linspace_indices(cfg.num_points, h * w, torch.device(device))
 
 
 def apply_extrinsics(

@@ -170,9 +170,12 @@ def softmin_sweep(
 def sweep_indices(
     cfg: IntrinsicsSoftminCfg, h: int, w: int, device, generator: Optional[torch.Generator]
 ) -> torch.Tensor:
-    """A random subset of min(num_procrustes_points, h*w) distinct pixels."""
-    perm = torch.randperm(h * w, generator=generator, device="cpu")
-    return perm[: cfg.num_procrustes_points].to(device)
+    """A random subset of min(num_procrustes_points, h*w) distinct pixels,
+    drawn on the host and copied without blocking the stream."""
+    perm = torch.randperm(h * w, generator=generator, device="cpu")[: cfg.num_procrustes_points]
+    if torch.device(device).type == "cuda":
+        perm = perm.pin_memory()
+    return perm.to(device, non_blocking=True)
 
 
 def apply_intrinsics(

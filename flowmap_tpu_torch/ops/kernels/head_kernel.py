@@ -43,9 +43,15 @@ _SIGNATURES = {
     "head_tail_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "head_wgrad": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "head_num_tiles": [_I, _I, _I],
+    "head_conv3x3_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "head_tail_mma_num_tiles": [_I, _I, _I],
+    "head_tail_mma_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "head_tail_mma_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "head_wgrad_mma": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WGRAD_CHUNKS = 96
+_MMA_WGRAD_CHUNKS = 192  # x 3 row offsets = 576 blocks
 
 
 def _lib():
@@ -90,13 +96,17 @@ def _flipped_transpose_layout(weight_oihw):
     return weight_oihw.float().flip(2, 3).permute(2, 3, 0, 1).contiguous()
 
 
+def _chunking(total: int) -> tuple[int, int]:
+    """(chunks, pixels per chunk) of the weight-gradient GEMMs' K dimension."""
+    chunk = -(-total // _WGRAD_CHUNKS)
+    chunk = -(-chunk // 32) * 32
+    return -(-total // chunk), chunk
+
+
 def _wgrad(kind, a, b, ca, cb):
     """Sum over pixels of A x shift(B) per tap: (ca, cb, 3, 3) and (ca,)."""
     n, _, h, w = a.shape
-    total = n * h * w
-    chunk = -(-total // _WGRAD_CHUNKS)
-    chunk = -(-chunk // 32) * 32
-    chunks = -(-total // chunk)
+    chunks, chunk = _chunking(n * h * w)
     pw = torch.empty((chunks, 9, ca, cb), device=a.device, dtype=torch.float32)
     pb = torch.empty((chunks, ca), device=a.device, dtype=torch.float32)
     status = _lib().head_wgrad(
@@ -106,6 +116,99 @@ def _wgrad(kind, a, b, ca, cb):
     build.check(status, "head_wgrad")
     dw = pw.sum(dim=0).reshape(3, 3, ca, cb).permute(2, 3, 0, 1)
     return dw, pb.sum(dim=0)
+
+
+def _conv_mma(x, w_tap_bf16, bias, cout):
+    """bf16 tensor-core 3x3 SAME conv: w_tap_bf16 is [3][3][cout][cin]."""
+    n, cin, h, w = x.shape
+    out = torch.empty((n, cout, h, w), device=x.device, dtype=torch.bfloat16)
+    status = _lib().head_conv3x3_mma(
+        build.ptr(x), build.ptr(w_tap_bf16),
+        build.ptr(bias) if bias is not None else None, build.ptr(out),
+        n, cin, cout, h, w, build.stream_ptr(x.device),
+    )
+    build.check(status, "head_conv3x3_mma")
+    return out
+
+
+def _wgrad_mma(kind, a, b, ca, cb):
+    """Tensor-core weight gradients; K runs over 16-pixel row segments."""
+    n, _, h, w = a.shape
+    total = n * h * -(-w // 16)
+    segs = -(-total // _MMA_WGRAD_CHUNKS)
+    segs += segs % 2
+    chunks = -(-total // segs)
+    pw = torch.empty((chunks, 9, ca, cb), device=a.device, dtype=torch.float32)
+    pb = torch.empty((chunks, ca), device=a.device, dtype=torch.float32)
+    status = _lib().head_wgrad_mma(
+        kind, build.ptr(a), build.ptr(b), n, h, w, chunks, segs,
+        build.ptr(pw), build.ptr(pb), build.stream_ptr(a.device),
+    )
+    build.check(status, "head_wgrad_mma")
+    return pw.sum(dim=0).reshape(3, 3, ca, cb).permute(2, 3, 0, 1), pb.sum(dim=0)
+
+
+def _mma_layout(weight_oihw):
+    """OIHW -> bf16 [3][3][cout][cin] (cin fastest) for the tensor-core kernels."""
+    return weight_oihw.permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
+
+
+def _mma_transposed_layout(weight_oihw):
+    """The transposed conv as a forward conv, bf16 [3][3][cin][cout]:
+    W'[a][b][i][o] = W[o, i, 2 - a, 2 - b]."""
+    return weight_oihw.flip(2, 3).permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+
+
+class _HeadMmaFn(torch.autograd.Function):
+    """bf16 path: every convolution on the tensor cores (mma.sync), f32
+    accumulation; z, d_phases and dz are kept in bf16."""
+
+    @staticmethod
+    def forward(ctx, x, k1, b1, kp, b2, w3, b3):
+        n, _, h, w = x.shape
+        kp_mma = _mma_layout(kp)
+        tail = (b2.float().contiguous(), w3.float().contiguous(),
+                b3.float().reshape(1).contiguous())
+        z = _conv_mma(x, _mma_layout(k1), b1.float().contiguous(), 32)
+        y4 = torch.empty((n, 4, h, w), device=x.device, dtype=torch.float32)
+        status = _lib().head_tail_mma_fwd(
+            build.ptr(z), build.ptr(kp_mma), *(build.ptr(t) for t in tail),
+            build.ptr(y4), n, h, w, build.stream_ptr(x.device),
+        )
+        build.check(status, "head_tail_mma_fwd")
+        LAUNCHES["fwd"] += 1
+        ctx.save_for_backward(x, z, k1, kp, kp_mma, *tail)
+        ctx.dtypes = (k1.dtype, b1.dtype, kp.dtype, b2.dtype, w3.dtype, b3.dtype, b3.shape)
+        return y4
+
+    @staticmethod
+    def backward(ctx, g):
+        x, z, k1, kp, kp_mma, b2f, w3f, b3f = ctx.saved_tensors
+        k1_dt, b1_dt, kp_dt, b2_dt, w3_dt, b3_dt, b3_shape = ctx.dtypes
+        n, _, h, w = x.shape
+        lib = _lib()
+        g = g.float().contiguous()
+        dph = torch.empty((n, 128, h, w), device=x.device, dtype=torch.bfloat16)
+        partial = torch.empty(
+            (lib.head_tail_mma_num_tiles(n, h, w), 33), device=x.device, dtype=torch.float32
+        )
+        status = lib.head_tail_mma_bwd(
+            build.ptr(z), build.ptr(kp_mma), build.ptr(b2f), build.ptr(w3f),
+            build.ptr(b3f), build.ptr(g), build.ptr(dph), build.ptr(partial),
+            n, h, w, build.stream_ptr(x.device),
+        )
+        build.check(status, "head_tail_mma_bwd")
+        red = partial.sum(dim=0)
+        dkp, db2_phases = _wgrad_mma(0, dph, z, 128, 32)
+        dz = _conv_mma(dph, _mma_transposed_layout(kp), None, 32)
+        dk1, db1 = _wgrad_mma(1, dz, x, 32, 64)
+        dx = _conv_mma(dz, _mma_transposed_layout(k1), None, 64)
+        LAUNCHES["bwd"] += 1
+        return (
+            dx, dk1.to(k1_dt), db1.to(b1_dt), dkp.to(kp_dt),
+            db2_phases.reshape(4, 32).sum(dim=0).to(b2_dt), red[:32].to(w3_dt),
+            red[32].to(b3_dt).reshape(b3_shape),
+        )
 
 
 class _HeadFn(torch.autograd.Function):
@@ -171,8 +274,8 @@ def head_interior(x, k1, b1, kp, b2, w3, b3):
     if x.dtype not in _CODES:
         raise ValueError(f"head kernel: unsupported dtype {x.dtype}")
     build.require_cuda_tensors("head_interior", x=x)
-    _lib()
-    return _HeadFn.apply(x, k1, b1, kp, b2, w3, b3)
+    fn = _HeadMmaFn if x.dtype == torch.bfloat16 else _HeadFn
+    return fn.apply(x, k1, b1, kp, b2, w3, b3)
 
 
 def bound(n: int, h: int, w: int, itemsize: int) -> dict[str, tuple[int, float]]:
