@@ -126,13 +126,12 @@ def grads_of(out, inputs, g=None):
 
 
 def main_path_inputs():
-    import torch
-
+    """(batch, flows, GT depths) of the main path's synthetic scene, on the card."""
     from flowmap_tpu_torch.utils.synthetic import SyntheticSceneCfg, make_scene
 
     return make_scene(
         SyntheticSceneCfg(num_frames=NUM_FRAMES, image_shape=IMAGE_SHAPE), device="cuda"
-    ), torch.device("cuda")
+    )
 
 
 def model_cfg_for(flows, compute_dtype="bfloat16"):
@@ -147,7 +146,7 @@ def model_cfg_for(flows, compute_dtype="bfloat16"):
 
     cfg = ModelCfg(
         backbone=BackboneMidasCfg(
-            pretrained=False, mapping="exp", bn="folded", compute_dtype=compute_dtype
+            mapping="exp", bn="folded", compute_dtype=compute_dtype
         ),
         intrinsics=IntrinsicsSoftminCfg(regression=RegressionCfg(after_step=1000, window=100)),
         extrinsics=ExtrinsicsProcrustesCfg(num_points=1000),
@@ -462,7 +461,7 @@ def main() -> int:
     build.build_all(verbose=True)
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    (batch, flows, depths), _ = main_path_inputs()
+    batch, flows, depths = main_path_inputs()
     cfg = model_cfg_for(flows)
     rows = check_flow_loss(batch, flows, depths)
     rows += check_shift_warp(flows, cfg)

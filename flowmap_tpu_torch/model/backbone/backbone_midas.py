@@ -33,13 +33,11 @@ from .midas_net import MidasSmall
 @dataclass(frozen=True)
 class BackboneMidasCfg:
     name: Literal["midas"] = "midas"
-    pretrained: bool = True
     weight_sensitivity: Optional[float] = None
     mapping: Literal["original", "exp"] = "original"
     model: Literal["DPT_Large", "MiDaS_small"] = "MiDaS_small"
     compute_dtype: Literal["float32", "bfloat16"] = "bfloat16"
     bn: Literal["batch", "folded"] = "batch"
-    remat: bool = False
     warp_impl: Literal["fused", "pallas", "matmul", "gather"] = "fused"
     warp_radius: int = 16
     warp_radius_x: int = 16
@@ -149,7 +147,7 @@ class BackboneMidas(nn.Module):
             + torch.einsum("nhwc,kc->nhwk", later_f, w0[:, cn:])
             + layer0.bias.to(dtype)
         )
-        for i, layer in enumerate(self.corr_weighter[1:]):
+        for layer in self.corr_weighter[1:]:
             x = torch.relu(x)
             x = x @ layer.weight.to(dtype).t() + layer.bias.to(dtype)
         logits = x.float()[..., 0]

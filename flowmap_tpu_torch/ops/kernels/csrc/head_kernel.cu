@@ -13,7 +13,10 @@
 // the real head sees the upsample's edge clamp); the caller splices exact
 // strips over them, so their cotangents arrive as zeros.
 //
-// Kernels, all f32 accumulation, no atomics:
+// Two sets of kernels, all f32 accumulation, no atomics. The f32 set below
+// runs on the CUDA cores (the compute_dtype="float32" configuration); the
+// bf16 set further down (the main path) runs every product on the tensor
+// cores with mma.sync. Each set has:
 // - conv3x3: direct 3x3 SAME convolution, one thread per output pixel of a
 //   16x16 tile, 32 output channels per pass held in registers; the input
 //   halo tile is staged in shared memory 16 channels at a time and the
@@ -28,8 +31,8 @@
 //   all pixels, register-tiled; each block reduces one pixel chunk and
 //   writes a partial that the caller sums (second pass), plus the bias
 //   partial (row sums of A) in the centre-tap blocks.
-// Bound: operations (~149 GFLOP forward at the main path's shape, fp32
-// CUDA-core arithmetic; the bytes are ~194 MB).
+// Bound: operations (~149 GFLOP forward at the main path's shape; the bytes
+// are ~194 MB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -13,13 +13,17 @@ over them (`model/backbone/midas_net.py:head_forward`).
 
 Design: the forward is two launches -- conv1 writes z (kept for the
 backward, as the TPU kernel keeps it), then a fused tail computes the
-phases, relu and projection per 16x16 tile with z's halo in shared memory,
-so the 128-channel phase tensor never reaches device memory. The backward
+phases, relu and projection per tile with z's halo in shared memory, so the
+128-channel phase tensor never reaches device memory. The backward
 recomputes the phases, writes d_phases, and runs two transposed 3x3
 convolutions (the forward's conv kernel with flipped weights) and two
 weight-gradient GEMMs whose per-block partials PyTorch sums: deterministic,
-no atomics. f32 accumulation throughout; inputs f32 or bf16. Bound:
-operations (~149 GFLOP forward at the main path's shape) -- see `bound`.
+no atomics. f32 accumulation throughout. The input's dtype picks the
+arithmetic: bf16 (the main path) runs every product on the tensor cores
+(`mma.sync`, z, d_phases and dz kept in bf16 as the TPU kernel keeps them
+in its compute dtype); f32 runs on the CUDA cores in full f32, for the
+`compute_dtype="float32"` configuration. Bound: operations (~149 GFLOP
+forward at the main path's shape) -- see `bound`.
 
 Dispatch is by device only: CPU tensors take `head_interior_plain`, CUDA
 tensors take the kernel or raise.

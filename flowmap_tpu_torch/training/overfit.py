@@ -28,8 +28,6 @@ from ..types import Batch, Flows
 @dataclass(frozen=True)
 class OverfitTrainerCfg:
     lr: float = 3e-5
-    max_steps: int = 2000
-    val_check_interval: int = 50
     seed: int = 0
 
 

@@ -11,7 +11,7 @@ Layouts are those of `flowmap_tpu/types.py` (and of the reference):
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields, replace
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -57,12 +57,3 @@ class ModelOutput:
     extrinsics: torch.Tensor  # (b, f, 4, 4)
     backward_correspondence_weights: torch.Tensor  # (b, p, h, w)
 
-
-def to_device(obj, device):
-    """Move every tensor field of a dataclass to `device`."""
-    moved = {
-        f.name: getattr(obj, f.name).to(device)
-        for f in fields(obj)
-        if isinstance(getattr(obj, f.name), torch.Tensor)
-    }
-    return replace(obj, **moved)

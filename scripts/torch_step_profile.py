@@ -78,7 +78,7 @@ def main() -> int:
     )
 
     build.build_all()
-    (batch, flows, _), _ = chip_smoke.main_path_inputs()
+    batch, flows, _ = chip_smoke.main_path_inputs()
     cfg = chip_smoke.model_cfg_for(flows)
     state = init_train_state(cfg, OverfitTrainerCfg(), chip_smoke.NUM_FRAMES,
                              chip_smoke.IMAGE_SHAPE)

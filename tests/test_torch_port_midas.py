@@ -81,7 +81,7 @@ def test_backbone_midas_native_weights():
         out_j = apply_midas(j_cfg, params, batch_j, flows_j)
 
     t_cfg = BackboneMidasCfg(
-        pretrained=False, mapping="exp", bn="folded", compute_dtype="float32",
+        mapping="exp", bn="folded", compute_dtype="float32",
         warp_radius=j_cfg.warp_radius, warp_radius_x=j_cfg.warp_radius_x,
         warp_radius_half=j_cfg.warp_radius_half,
         warp_radius_half_x=j_cfg.warp_radius_half_x,

@@ -113,7 +113,7 @@ def runs():
     batch, flows, _ = make_scene(SyntheticSceneCfg(num_frames=F, image_shape=(H, W)), "cpu")
     cfg = _autosize_warp_radius(
         ModelCfg(
-            backbone=BackboneMidasCfg(pretrained=False, mapping="exp", bn="folded",
+            backbone=BackboneMidasCfg(mapping="exp", bn="folded",
                                       compute_dtype="float32"),
             intrinsics=IntrinsicsSoftminCfg(num_procrustes_points=POINTS,
                                             regression=RegressionCfg(after_step=1000, window=100)),
@@ -229,3 +229,71 @@ def test_tracking_loss_raises_until_next_slice():
     with pytest.raises(NotImplementedError, match="next slice"):
         compute_losses([LossTrackingCfg()], None, None, dataclasses.make_dataclass(
             "Out", ["surfaces"])(torch.zeros(1)), 0, (4, 4))
+
+
+@pytest.mark.parametrize(
+    "variant",
+    [
+        ("explicit_depth", "regressed", "regressed", "l1"),
+        ("explicit_depth", "ground_truth", "procrustes", "huber"),
+        ("explicit_depth", "regressed", "procrustes", "l2"),
+    ],
+)
+def test_model_forward_variants(variant):
+    """The other backbone, intrinsics and extrinsics modules of the slice
+    (explicit depth, regressed and ground-truth intrinsics, regressed poses)
+    and the flow loss's other mappings: model outputs and loss within 1e-4."""
+    from flowmap_tpu.loss.mapping import MappingCfg as JMappingCfg
+    from flowmap_tpu.model import BackboneExplicitDepthCfg as JExplicitCfg
+    from flowmap_tpu.model import ExtrinsicsRegressedCfg as JExtrRegressedCfg
+    from flowmap_tpu.model import IntrinsicsGroundTruthCfg as JGroundTruthCfg
+    from flowmap_tpu.model import IntrinsicsRegressedCfg as JIntrRegressedCfg
+    from flowmap_tpu.model.model import init_model as j_init_model
+    from flowmap_tpu_torch.loss.mapping import MappingCfg
+    from flowmap_tpu_torch.model import (
+        BackboneExplicitDepthCfg,
+        ExtrinsicsRegressedCfg,
+        IntrinsicsGroundTruthCfg,
+        IntrinsicsRegressedCfg,
+    )
+    from flowmap_tpu_torch.model.model import forward, init_model
+
+    _, intr, extr, mapping = variant
+    f, h, w = 4, 16, 24
+    j_cfg = JModelCfg(
+        backbone=JExplicitCfg(),
+        intrinsics=JIntrRegressedCfg() if intr == "regressed" else JGroundTruthCfg(),
+        extrinsics=(JExtrRegressedCfg() if extr == "regressed"
+                    else JExtrinsicsCfg(num_points=100)),
+    )
+    cfg = ModelCfg(
+        backbone=BackboneExplicitDepthCfg(),
+        intrinsics=IntrinsicsRegressedCfg() if intr == "regressed" else IntrinsicsGroundTruthCfg(),
+        extrinsics=(ExtrinsicsRegressedCfg() if extr == "regressed"
+                    else ExtrinsicsProcrustesCfg(num_points=100)),
+    )
+    params, j_state = j_init_model(j_cfg, jax.random.PRNGKey(0), num_frames=f, image_shape=(h, w))
+    rng = np.random.default_rng(1)
+    noisy = lambda a, s: np.asarray(a) + s * rng.standard_normal(np.shape(a)).astype(np.float32)  # noqa: E731
+    params["backbone"] = {"depth": noisy(params["backbone"]["depth"], 0.01) + 1.0,
+                          "weights": noisy(params["backbone"]["weights"], 0.01)}
+    if extr == "regressed":
+        params["extrinsics"] = {k: noisy(v, 0.02) for k, v in params["extrinsics"].items()}
+    j_batch, j_flows, _ = j_make_scene(JSceneCfg(num_frames=f, image_shape=(h, w)))
+    out_j, _ = j_forward(j_cfg, params, j_state, j_batch, j_flows, 0, jax.random.PRNGKey(1))
+    loss_j, _ = j_compute_losses(
+        [JLossFlowCfg(mapping=JMappingCfg(name=mapping))], j_flows, None, out_j, 0, (h, w))
+
+    model, state = init_model(cfg, num_frames=f, image_shape=(h, w), device="cpu")
+    model.load_state_dict(from_jax_params(params), strict=True)
+    batch, flows, _ = make_scene(SyntheticSceneCfg(num_frames=f, image_shape=(h, w)), "cpu")
+    with torch.no_grad():
+        out_t, _ = forward(model, state, batch, flows, 0)
+        loss_t, _ = compute_losses(
+            [LossFlowCfg(mapping=MappingCfg(name=mapping))], flows, None, out_t, 0, (h, w))
+    for got, want in ((out_t.surfaces, out_j.surfaces), (out_t.intrinsics, out_j.intrinsics),
+                      (out_t.extrinsics, out_j.extrinsics),
+                      (out_t.backward_correspondence_weights,
+                       out_j.backward_correspondence_weights)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-4)
