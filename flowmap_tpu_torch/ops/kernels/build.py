@@ -68,19 +68,22 @@ def build_all(verbose: bool = False) -> dict[str, Path]:
         out, flags = _target(name)
         outs[name] = out
         if not out.exists():
-            cmd = _command(name, out.with_suffix(".tmp.so"), flags)
+            # A per-process temporary, renamed into place: processes that
+            # build at the same time never load a half-written library.
+            tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+            cmd = _command(name, tmp, flags)
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            ), out)
+            ), tmp, out)
     errors = []
-    for name, (proc, out) in procs.items():
+    for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
-        out.with_suffix(".tmp.so").rename(out)
+        os.replace(tmp, out)
         if verbose and log:
             print(f"[nvcc {name}]\n{log}", flush=True)
     if errors:

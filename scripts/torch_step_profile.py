@@ -13,9 +13,9 @@ then traces a few steps with `torch.profiler` and prints:
 
 Usage (from the root of a checkout, on a machine with the card):
 
-    python3 scripts/torch_step_profile.py [--steps 3] [--top 30]
+    python3 scripts/torch_step_profile.py [--steps 3] [--top 30] [--trace PATH]
 
-Writes the Chrome trace to chiprun_out/torch_step_trace.json.
+`--trace` also writes the Chrome trace of the traced steps to PATH.
 """
 
 from __future__ import annotations
@@ -54,6 +54,7 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=30)
+    parser.add_argument("--trace", type=Path, default=None)
     args = parser.parse_args()
 
     sys.path.insert(0, str(REPO))
@@ -129,9 +130,8 @@ def main() -> int:
     for name, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[: args.top]:
         print(f"  {us / 1e3 / args.steps:9.3f} {n / args.steps:7.1f}  {name[:110]}")
 
-    out = REPO / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / "torch_step_trace.json"))
+    if args.trace is not None:
+        prof.export_chrome_trace(str(args.trace))
     return 0
 
 
