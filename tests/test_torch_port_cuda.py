@@ -64,7 +64,7 @@ def test_flow_loss_kernel_matches_plain(cuda):
     inputs = [t.clone().requires_grad_(True) for t in (surfaces, batch.extrinsics, batch.intrinsics)]
     got = flow_loss(*inputs, flows, (32, 48), 0.01)[0]
     want = flow_loss_plain(*inputs, flows, (32, 48), MappingCfg("huber", 0.01))[0]
-    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    np.testing.assert_allclose(float(got.detach()), float(want.detach()), rtol=1e-5)
     for a, b in zip(torch.autograd.grad(got, inputs), torch.autograd.grad(want, inputs)):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
@@ -85,3 +85,31 @@ def test_head_kernel_matches_plain(cuda):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
     for a, b in zip(torch.autograd.grad(got, inputs, g), torch.autograd.grad(want, inputs, g)):
         assert float((a - b).norm()) <= 2e-3 * float(b.norm())
+
+
+def test_head_kernel_bf16_matches_plain_on_ragged_tiles(cuda):
+    """The bf16 tensor-core path on a frame that fills no tile exactly
+    (20 x 36): rel L2 within 1e-1 of the bf16 plain version, and no less
+    accurate than it against the f32 plain version on the same inputs."""
+    from flowmap_tpu_torch.ops.kernels.head_kernel import head_interior, head_interior_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=cuda)
+
+    base = [rnd(3, 64, 20, 36), rnd(32, 64, 3, 3, scale=0.06), rnd(32, scale=0.1),
+            rnd(128, 32, 3, 3, scale=0.08), rnd(32, scale=0.1), rnd(32, scale=0.25),
+            rnd(scale=0.1)]
+    g = torch.randn((3, 4, 20, 36), generator=gen, device=cuda)
+    bf = [t.to(torch.bfloat16).requires_grad_(True) for t in base]
+    f32 = [t.detach().float().requires_grad_(True) for t in bf]
+    got, plain, ref = head_interior(*bf), head_interior_plain(*bf), head_interior_plain(*f32)
+    grads = [torch.autograd.grad(o, ins, g) for o, ins in ((got, bf), (plain, bf), (ref, f32))]
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    for k_out, p_out, r_out in zip((got, *grads[0]), (plain, *grads[1]), (ref, *grads[2])):
+        assert rel_l2(k_out, p_out) <= 1e-1
+        assert rel_l2(k_out, r_out) <= 1.25 * rel_l2(p_out, r_out) + 1e-3
