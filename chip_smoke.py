@@ -14,7 +14,9 @@ It imports nothing of JAX or of `flowmap_tpu`, and in order:
    (B), the MiDaS head interior (C) -- calls the wrapper at the shapes the
    main path gives it and holds forward and backward against the plain
    PyTorch version: in float32 with TF32 off (tight) and, for B and C, in
-   bfloat16 (looser); any mismatch raises. Prints each error and time;
+   bfloat16 (looser; C's bf16 kernels are also held tightly against a plain
+   f32 emulation of their own roundings); any mismatch raises. Prints each
+   error and time, and A's C entry points timed alone;
 4. checks the whole train step on a small scene: one step through the
    kernels on the card against the same step on the CPU through the plain
    versions;
@@ -40,8 +42,6 @@ import sys
 import time
 from pathlib import Path
 
-NUM_FRAMES = 150
-IMAGE_SHAPE = (160, 224)
 WARMUP_STEPS = 2
 TIMED_STEPS = 5
 
@@ -69,10 +69,18 @@ TOL = {
     "head_f32_grad_rel": 2e-3,
     # In bf16 the plain version rounds z, the phases, d_phases and dz to
     # bf16 (eps 2^-8) and relu signs flip where phases round across 0; the
-    # kernel keeps phases and gradients in f32. Both are also held against
-    # the f32 plain version, where the kernel must be no less accurate.
+    # kernel keeps the phases in f32. Both are also held against the f32
+    # plain version, where the kernel must be no less accurate.
     "head_bf16_rel": 3e-2,
     "head_bf16_grad_rel": 1e-1,
+    # The bf16 kernels against `head_interior_mma_emulated`, which rounds at
+    # the kernels' own points (rel L2). Stage by stage, each started from
+    # the kernels' own z, d_phases and dz, only the f32 summation order and
+    # the rare bf16 rounding it tips differ. End to end, a one-ulp
+    # difference in z also tips relu sides downstream, which moves the
+    # gradients by ~2e-3..4e-3 (H100, 150 x 80 x 112).
+    "head_bf16_emulated_stage_rel": 1e-3,
+    "head_bf16_emulated_rel": 1e-2,
     # Whole step, GPU kernels vs CPU plain versions, f32.
     "step_loss_rel": 1e-3,
     "step_grad_rel": 1e-2,
@@ -119,39 +127,83 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Least work of each kernel, {direction: (bytes, operations)}: every input
+# read once and every output written once; weights and per-pair matrices
+# are left out where they are below 0.1% of the bytes.
+
+
+def flow_loss_bound(f: int, h: int, w: int) -> dict[str, tuple[float, float]]:
+    """A, f32: surfaces, both directions' flows (8 B) and masks (4 B) and M
+    in; the backward also writes d_surfaces. ~60 operations per pixel and
+    direction forward, twice that backward."""
+    px, pairs_px = f * h * w, (f - 1) * h * w
+    fwd = px * 12 + 2 * pairs_px * (8 + 4) + 2 * (f - 1) * 48
+    ops = 2 * pairs_px * 60.0
+    return {"fwd": (fwd, ops), "bwd": (fwd + px * 12, 2 * ops)}
+
+
+def shift_warp_bound(n: int, h: int, w: int, c: int, itemsize: int):
+    """B: features in, grid in (f32), result out; four taps of one multiply
+    and one add per channel, each way."""
+    each = 2 * n * h * w * c * itemsize + n * h * w * 2 * 4
+    ops = n * h * w * c * 4 * 2.0
+    return {"fwd": (each, ops), "bwd": (each, ops)}
+
+
+def head_bound(n: int, h: int, w: int, itemsize: int):
+    """C at (n, 64, h, w). Forward: x in; z (kept for the backward), the relu
+    mask of the 128 phases (1 bit each) and y4 (f32) out; conv1 and the phase
+    conv. Backward: x, z, the mask and g (f32) in, dx out; the input and
+    weight gradients of both convolutions (dx, dk1: 2 x conv1; dz, dkp:
+    2 x phases). Recomputing the phases is a design's choice, not counted."""
+    px = n * h * w
+    conv1 = 2.0 * px * 32 * 64 * 9
+    phases = 2.0 * px * 128 * 32 * 9
+    mask = px * 128 // 8
+    fwd = px * 64 * itemsize + px * 32 * itemsize + mask + px * 4 * 4
+    bwd = px * 64 * itemsize * 2 + px * 32 * itemsize + mask + px * 4 * 4
+    return {"fwd": (fwd, conv1 + phases), "bwd": (bwd, 2 * conv1 + 2 * phases)}
+
+
 def grads_of(out, inputs, g=None):
     import torch
 
     return torch.autograd.grad(out, inputs, g, retain_graph=True)
 
 
-def main_path_inputs():
-    """(batch, flows, GT depths) of the main path's synthetic scene, on the card."""
-    from flowmap_tpu_torch.utils.synthetic import SyntheticSceneCfg, make_scene
+def flow_loss_entry_ms(surfaces, extrinsics, intrinsics, flows, delta) -> dict[str, float]:
+    """ms of A's two C entry points alone, without the wrapper's PyTorch work
+    (the fold of M, the flows' copies, the sums of the partials)."""
+    import torch
 
-    return make_scene(
-        SyntheticSceneCfg(num_frames=NUM_FRAMES, image_shape=IMAGE_SHAPE), device="cuda"
-    )
+    from flowmap_tpu_torch.ops.kernels import build
+    from flowmap_tpu_torch.ops.kernels import flow_loss as fl
+    from flowmap_tpu_torch.types import Flows
 
+    _, f, h, w, _ = surfaces.shape
+    lib, stream = fl._lib(), build.stream_ptr(surfaces.device)
+    surf = surfaces[0].detach().contiguous()
+    m_fwd, m_bwd = (m.detach().contiguous() for m in fl.fold_projections(
+        extrinsics[0].detach(), intrinsics[0].detach()))
+    fl_flows = Flows(*(
+        t[0].float().contiguous()
+        for t in (flows.forward, flows.backward, flows.forward_mask, flows.backward_mask)
+    ))
+    args = fl._launch_args(surf, m_fwd, m_bwd, fl_flows, (h, w), delta)
+    tiles = fl._num_tiles(h, w)
+    p_fwd = torch.empty((f, tiles), device=surf.device)
+    p_bwd = torch.empty((f, tiles, 24), device=surf.device)
+    d_surf, g = torch.empty_like(surf), torch.ones(1, device=surf.device)
 
-def model_cfg_for(flows, compute_dtype="bfloat16"):
-    from flowmap_tpu_torch.model import (
-        BackboneMidasCfg,
-        ExtrinsicsProcrustesCfg,
-        IntrinsicsSoftminCfg,
-        ModelCfg,
-        RegressionCfg,
-    )
-    from flowmap_tpu_torch.training.overfit import _autosize_warp_radius
+    def fwd():
+        build.check(lib.flow_loss_fwd(*args, build.ptr(p_fwd), stream), "flow_loss_fwd")
 
-    cfg = ModelCfg(
-        backbone=BackboneMidasCfg(
-            mapping="exp", bn="folded", compute_dtype=compute_dtype
-        ),
-        intrinsics=IntrinsicsSoftminCfg(regression=RegressionCfg(after_step=1000, window=100)),
-        extrinsics=ExtrinsicsProcrustesCfg(num_points=1000),
-    )
-    return _autosize_warp_radius(cfg, flows, flows.backward.shape[-3])
+    def bwd():
+        build.check(lib.flow_loss_bwd(
+            *args, build.ptr(g), build.ptr(p_bwd), build.ptr(d_surf), stream,
+        ), "flow_loss_bwd")
+
+    return {"fwd": time_ms(fwd, iters=20), "bwd": time_ms(bwd, iters=20)}
 
 
 def check_flow_loss(batch, flows, depths) -> list[dict]:
@@ -160,6 +212,7 @@ def check_flow_loss(batch, flows, depths) -> list[dict]:
     from flowmap_tpu_torch.loss.mapping import MappingCfg
     from flowmap_tpu_torch.ops.geometry import sample_image_grid, unproject
     from flowmap_tpu_torch.ops.kernels import flow_loss as fl
+    from flowmap_tpu_torch.training.flagship import IMAGE_SHAPE, NUM_FRAMES
 
     h, w = IMAGE_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -192,11 +245,15 @@ def check_flow_loss(batch, flows, depths) -> list[dict]:
         "bwd": time_ms(lambda: grads_of(out_k, inputs)),
         "bwd_plain": time_ms(lambda: grads_of(out_p, inputs)),
     }
-    nbytes = fl.bound_bytes(NUM_FRAMES, h, w)
-    flops = 2 * (NUM_FRAMES - 1) * h * w * 60.0
+    entry = flow_loss_entry_ms(*inputs, flows, 0.01)
+    bounds = flow_loss_bound(NUM_FRAMES, h, w)
+    print(f"[A flow_loss] ms fwd / bwd: wrapper {ms['fwd']:.4f} / {ms['bwd']:.4f}, "
+          f"C entry alone {entry['fwd']:.4f} / {entry['bwd']:.4f}, bound "
+          f"{bound_ms(*bounds['fwd'], 'float32')[0]:.4f} / "
+          f"{bound_ms(*bounds['bwd'], 'float32')[0]:.4f}", flush=True)
     rows = []
     for d, err in (("fwd", abs_err(out_k, out_p)), ("bwd", max(abs_err(a, b) for a, b in zip(g_k, g_p)))):
-        b_ms, b_by = bound_ms(nbytes[d], flops * (1 if d == "fwd" else 2), "float32")
+        b_ms, b_by = bound_ms(*bounds[d], "float32")
         rows.append(dict(
             name=f"flow_loss_{d}", route="cuda",
             source="flowmap_tpu_torch/ops/kernels/csrc/flow_loss.cu",
@@ -214,6 +271,7 @@ def check_shift_warp(flows, model_cfg) -> list[dict]:
     from flowmap_tpu_torch.ops.geometry import sample_image_grid
     from flowmap_tpu_torch.ops.kernels import shift_warp as sw
     from flowmap_tpu_torch.ops.warp import warp_bilinear_shifts
+    from flowmap_tpu_torch.training.flagship import IMAGE_SHAPE, NUM_FRAMES
 
     h, w = IMAGE_SHAPE
     hn, wn, c = h // 2, w // 2, 64
@@ -255,10 +313,9 @@ def check_shift_warp(flows, model_cfg) -> list[dict]:
             "bwd_plain": time_ms(lambda: grads_of(out_p, [feats], g), iters=3),
             "bwd_lib": time_ms(lambda: grads_of(out_l, [feats], g.permute(0, 3, 1, 2))),
         }
-        nbytes = sw.bound_bytes(NUM_FRAMES - 1, hn, wn, c, 2)
-        flops = (NUM_FRAMES - 1) * hn * wn * c * 4 * 2.0
+        bounds = shift_warp_bound(NUM_FRAMES - 1, hn, wn, c, 2)
         for d, err in (("fwd", e_f), ("bwd", e_b)):
-            b_ms, b_by = bound_ms(nbytes[d], flops, "bfloat16")
+            b_ms, b_by = bound_ms(*bounds[d], "bfloat16")
             rows.append(dict(
                 name=f"shift_warp_{d}", route="cuda",
                 source="flowmap_tpu_torch/ops/kernels/csrc/shift_warp.cu",
@@ -274,6 +331,7 @@ def check_head() -> list[dict]:
 
     from flowmap_tpu_torch.model.backbone.midas_net import head_parity_kernel
     from flowmap_tpu_torch.ops.kernels import head_kernel as hk
+    from flowmap_tpu_torch.training.flagship import IMAGE_SHAPE, NUM_FRAMES
 
     n, h, w = NUM_FRAMES, IMAGE_SHAPE[0] // 2, IMAGE_SHAPE[1] // 2
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -316,6 +374,28 @@ def check_head() -> list[dict]:
                   f"plain {[f'{e:.1e}' for e in acc_p]}", flush=True)
             if any(k > 1.25 * p + 1e-3 for k, p in zip(acc_k, acc_p)):
                 fail("head_interior bf16 is less accurate than its plain version")
+            # The tight checks: the kernels against the plain f32 emulation
+            # of their own roundings, end to end and stage by stage.
+            xs = [t.detach() for t in inputs]
+            y_e, g_e, _ = hk.head_interior_mma_emulated(*xs, g)
+            e_end = [rel_l2(a, b) for a, b in zip((out_k, *g_k), (y_e, *g_e))]
+            y_s, z_s = hk.head_mma_forward(*xs)
+            g_s, (dph_s, dz_s) = hk.head_mma_backward(xs[0], z_s, *xs[1:], g)
+            if not torch.equal(y_s, out_k) or not all(
+                torch.equal(a, b) for a, b in zip(g_s, g_k)
+            ):
+                fail("head_interior bf16: the stage launches differ from the autograd path")
+            y_e, g_e, inter_e = hk.head_interior_mma_emulated(*xs, g, given=(z_s, dph_s, dz_s))
+            e_stage = [rel_l2(a, b) for a, b in zip(
+                (y_s, z_s, dph_s, dz_s, *g_s), (y_e, *inter_e, *g_e))]
+            print(f"[C head_interior bf16 vs its f32 emulation] rel L2 end to end "
+                  f"(y4, grads) {[f'{e:.1e}' for e in e_end]}; stage by stage "
+                  f"(y4, z, d_phases, dz, grads) {[f'{e:.1e}' for e in e_stage]}", flush=True)
+            if not max(e_end) <= TOL["head_bf16_emulated_rel"] or not (
+                max(e_stage) <= TOL["head_bf16_emulated_stage_rel"]
+            ):
+                fail("head_interior bf16 disagrees with the emulation of its roundings")
+            del y_e, g_e, inter_e, y_s, z_s, g_s, dph_s, dz_s
         if dtype != torch.bfloat16:
             continue
         ms = {
@@ -324,7 +404,7 @@ def check_head() -> list[dict]:
             "bwd": time_ms(lambda: grads_of(out_k, inputs, g), iters=5),
             "bwd_plain": time_ms(lambda: grads_of(out_p, inputs, g), iters=5),
         }
-        bounds = hk.bound(n, h, w, 2)
+        bounds = head_bound(n, h, w, 2)
         for d, err in (("fwd", abs_err(out_k, out_p)),
                        ("bwd", max(abs_err(a, b) for a, b in zip(g_k, g_p)))):
             b_ms, b_by = bound_ms(*bounds[d], "bfloat16")
@@ -345,17 +425,17 @@ def check_small_step() -> None:
     import torch
 
     from flowmap_tpu_torch.loss.loss import LossFlowCfg
+    from flowmap_tpu_torch.training import flagship
     from flowmap_tpu_torch.training.overfit import (
         OverfitTrainerCfg,
         init_train_state,
         make_train_step,
     )
-    from flowmap_tpu_torch.utils.synthetic import SyntheticSceneCfg, make_scene
 
     results = {}
     for device in ("cpu", "cuda"):
-        batch, flows, _ = make_scene(SyntheticSceneCfg(num_frames=8, image_shape=(64, 96)), device)
-        cfg = model_cfg_for(flows, compute_dtype="float32")
+        batch, flows, _ = flagship.scene(device, num_frames=8, image_shape=(64, 96))
+        cfg = flagship.model_cfg(flows, compute_dtype="float32")
         state = init_train_state(cfg, OverfitTrainerCfg(), 8, (64, 96), device=device)
         step = make_train_step(cfg, [LossFlowCfg()])
         indices = torch.arange(0, 64 * 96, 3, device=device)
@@ -384,13 +464,14 @@ def run_main_path(batch, flows) -> dict:
 
     from flowmap_tpu_torch.loss.loss import LossFlowCfg
     from flowmap_tpu_torch.ops import kernels
+    from flowmap_tpu_torch.training.flagship import IMAGE_SHAPE, NUM_FRAMES, model_cfg
     from flowmap_tpu_torch.training.overfit import (
         OverfitTrainerCfg,
         init_train_state,
         make_train_step,
     )
 
-    cfg = model_cfg_for(flows)
+    cfg = model_cfg(flows)
     bb = cfg.backbone
     ry, rx = bb.warp_radius_half, bb.warp_radius_half_x
     taps = (2 * ry + 2) * (2 * rx + 2)
@@ -456,13 +537,14 @@ def main() -> int:
           flush=True)
 
     from flowmap_tpu_torch.ops.kernels import build
+    from flowmap_tpu_torch.training import flagship
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    batch, flows, depths = main_path_inputs()
-    cfg = model_cfg_for(flows)
+    batch, flows, depths = flagship.scene("cuda")
+    cfg = flagship.model_cfg(flows)
     rows = check_flow_loss(batch, flows, depths)
     rows += check_shift_warp(flows, cfg)
     rows += check_head()

@@ -10,7 +10,7 @@ tile of one source frame per block and evaluates both directions from one
 read of the surface; loss and d_M sums go to per-block partials that
 PyTorch sums (deterministic, no atomics), and d_surfaces is written once per
 pixel. Bound: bytes (surface, flows and masks read once; d_surfaces written
-once) -- see `bound_bytes`.
+once; `chip_smoke.py` computes it).
 
 Dispatch is by device only: CPU tensors take `flow_loss_plain` (the XLA
 formulation of `flowmap_tpu/loss/loss.py:79-95`), CUDA tensors take the
@@ -173,11 +173,3 @@ def flow_loss(
     loss_sum = _FlowLossFn.apply(surf, m_fwd, m_bwd, flows, tuple(image_shape), float(delta))
     valid_sum = flows.forward_mask.sum() + flows.backward_mask.sum()
     return loss_sum, valid_sum
-
-
-def bound_bytes(f: int, h: int, w: int) -> dict[str, int]:
-    """Least bytes each direction of the kernel must move (f32 throughout)."""
-    px = f * h * w
-    pairs_px = (f - 1) * h * w
-    fwd = px * 12 + 2 * pairs_px * (8 + 4) + 2 * (f - 1) * 48
-    return {"fwd": fwd, "bwd": fwd + px * 12}

@@ -22,8 +22,10 @@ no atomics. f32 accumulation throughout. The input's dtype picks the
 arithmetic: bf16 (the main path) runs every product on the tensor cores
 (`mma.sync`, z, d_phases and dz kept in bf16 as the TPU kernel keeps them
 in its compute dtype); f32 runs on the CUDA cores in full f32, for the
-`compute_dtype="float32"` configuration. Bound: operations (~149 GFLOP
-forward at the main path's shape) -- see `bound`.
+`compute_dtype="float32"` configuration. `head_interior_mma_emulated`
+repeats the bf16 path's roundings in plain f32, to hold it to. Bound:
+operations (~149 GFLOP forward, ~297 GFLOP backward at the main path's
+shape; `chip_smoke.py` computes it).
 
 Dispatch is by device only: CPU tensors take `head_interior_plain`, CUDA
 tensors take the kernel or raise.
@@ -100,17 +102,19 @@ def _flipped_transpose_layout(weight_oihw):
     return weight_oihw.float().flip(2, 3).permute(2, 3, 0, 1).contiguous()
 
 
-def _chunking(total: int) -> tuple[int, int]:
-    """(chunks, pixels per chunk) of the weight-gradient GEMMs' K dimension."""
-    chunk = -(-total // _WGRAD_CHUNKS)
-    chunk = -(-chunk // 32) * 32
-    return -(-total // chunk), chunk
+def _chunking(total: int, target: int, multiple: int) -> tuple[int, int]:
+    """Split the weight-gradient GEMMs' K dimension of `total` units (pixels
+    or row segments) into about `target` chunks of a multiple of `multiple`
+    units: (chunks, units per chunk)."""
+    per = -(-total // target)
+    per = -(-per // multiple) * multiple
+    return -(-total // per), per
 
 
 def _wgrad(kind, a, b, ca, cb):
     """Sum over pixels of A x shift(B) per tap: (ca, cb, 3, 3) and (ca,)."""
     n, _, h, w = a.shape
-    chunks, chunk = _chunking(n * h * w)
+    chunks, chunk = _chunking(n * h * w, _WGRAD_CHUNKS, 32)
     pw = torch.empty((chunks, 9, ca, cb), device=a.device, dtype=torch.float32)
     pb = torch.empty((chunks, ca), device=a.device, dtype=torch.float32)
     status = _lib().head_wgrad(
@@ -138,10 +142,7 @@ def _conv_mma(x, w_tap_bf16, bias, cout):
 def _wgrad_mma(kind, a, b, ca, cb):
     """Tensor-core weight gradients; K runs over 16-pixel row segments."""
     n, _, h, w = a.shape
-    total = n * h * -(-w // 16)
-    segs = -(-total // _MMA_WGRAD_CHUNKS)
-    segs += segs % 2
-    chunks = -(-total // segs)
+    chunks, segs = _chunking(n * h * -(-w // 16), _MMA_WGRAD_CHUNKS, 2)
     pw = torch.empty((chunks, 9, ca, cb), device=a.device, dtype=torch.float32)
     pb = torch.empty((chunks, ca), device=a.device, dtype=torch.float32)
     status = _lib().head_wgrad_mma(
@@ -163,56 +164,71 @@ def _mma_transposed_layout(weight_oihw):
     return weight_oihw.flip(2, 3).permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
 
 
+def _mma_tail_args(b2, w3, b3):
+    return b2.float().contiguous(), w3.float().contiguous(), b3.float().reshape(1).contiguous()
+
+
+def head_mma_forward(x, k1, b1, kp, b2, w3, b3):
+    """The bf16 path's forward launches on bf16 x: (y4 f32, z bf16)."""
+    n, _, h, w = x.shape
+    z = _conv_mma(x, _mma_layout(k1), b1.float().contiguous(), 32)
+    y4 = torch.empty((n, 4, h, w), device=x.device, dtype=torch.float32)
+    status = _lib().head_tail_mma_fwd(
+        build.ptr(z), build.ptr(_mma_layout(kp)),
+        *(build.ptr(t) for t in _mma_tail_args(b2, w3, b3)),
+        build.ptr(y4), n, h, w, build.stream_ptr(x.device),
+    )
+    build.check(status, "head_tail_mma_fwd")
+    return y4, z
+
+
+def head_mma_backward(x, z, k1, b1, kp, b2, w3, b3, g):
+    """The bf16 path's backward launches for the cotangent g of y4.
+
+    Returns the gradients of (x, k1, b1, kp, b2, w3, b3), each in its
+    input's dtype, and the intermediates (d_phases, dz), bf16."""
+    n, _, h, w = x.shape
+    lib = _lib()
+    tail = _mma_tail_args(b2, w3, b3)
+    g = g.float().contiguous()
+    dph = torch.empty((n, 128, h, w), device=x.device, dtype=torch.bfloat16)
+    partial = torch.empty(
+        (lib.head_tail_mma_num_tiles(n, h, w), 33), device=x.device, dtype=torch.float32
+    )
+    status = lib.head_tail_mma_bwd(
+        build.ptr(z), build.ptr(_mma_layout(kp)), *(build.ptr(t) for t in tail),
+        build.ptr(g), build.ptr(dph), build.ptr(partial), n, h, w, build.stream_ptr(x.device),
+    )
+    build.check(status, "head_tail_mma_bwd")
+    red = partial.sum(dim=0)
+    dkp, db2_phases = _wgrad_mma(0, dph, z, 128, 32)
+    dz = _conv_mma(dph, _mma_transposed_layout(kp), None, 32)
+    dk1, db1 = _wgrad_mma(1, dz, x, 32, 64)
+    dx = _conv_mma(dz, _mma_transposed_layout(k1), None, 64)
+    grads = (
+        dx, dk1.to(k1.dtype), db1.to(b1.dtype), dkp.to(kp.dtype),
+        db2_phases.reshape(4, 32).sum(dim=0).to(b2.dtype), red[:32].to(w3.dtype),
+        red[32].to(b3.dtype).reshape(b3.shape),
+    )
+    return grads, (dph, dz)
+
+
 class _HeadMmaFn(torch.autograd.Function):
     """bf16 path: every convolution on the tensor cores (mma.sync), f32
     accumulation; z, d_phases and dz are kept in bf16."""
 
     @staticmethod
     def forward(ctx, x, k1, b1, kp, b2, w3, b3):
-        n, _, h, w = x.shape
-        kp_mma = _mma_layout(kp)
-        tail = (b2.float().contiguous(), w3.float().contiguous(),
-                b3.float().reshape(1).contiguous())
-        z = _conv_mma(x, _mma_layout(k1), b1.float().contiguous(), 32)
-        y4 = torch.empty((n, 4, h, w), device=x.device, dtype=torch.float32)
-        status = _lib().head_tail_mma_fwd(
-            build.ptr(z), build.ptr(kp_mma), *(build.ptr(t) for t in tail),
-            build.ptr(y4), n, h, w, build.stream_ptr(x.device),
-        )
-        build.check(status, "head_tail_mma_fwd")
+        y4, z = head_mma_forward(x, k1, b1, kp, b2, w3, b3)
         LAUNCHES["fwd"] += 1
-        ctx.save_for_backward(x, z, k1, kp, kp_mma, *tail)
-        ctx.dtypes = (k1.dtype, b1.dtype, kp.dtype, b2.dtype, w3.dtype, b3.dtype, b3.shape)
+        ctx.save_for_backward(x, z, k1, b1, kp, b2, w3, b3)
         return y4
 
     @staticmethod
     def backward(ctx, g):
-        x, z, k1, kp, kp_mma, b2f, w3f, b3f = ctx.saved_tensors
-        k1_dt, b1_dt, kp_dt, b2_dt, w3_dt, b3_dt, b3_shape = ctx.dtypes
-        n, _, h, w = x.shape
-        lib = _lib()
-        g = g.float().contiguous()
-        dph = torch.empty((n, 128, h, w), device=x.device, dtype=torch.bfloat16)
-        partial = torch.empty(
-            (lib.head_tail_mma_num_tiles(n, h, w), 33), device=x.device, dtype=torch.float32
-        )
-        status = lib.head_tail_mma_bwd(
-            build.ptr(z), build.ptr(kp_mma), build.ptr(b2f), build.ptr(w3f),
-            build.ptr(b3f), build.ptr(g), build.ptr(dph), build.ptr(partial),
-            n, h, w, build.stream_ptr(x.device),
-        )
-        build.check(status, "head_tail_mma_bwd")
-        red = partial.sum(dim=0)
-        dkp, db2_phases = _wgrad_mma(0, dph, z, 128, 32)
-        dz = _conv_mma(dph, _mma_transposed_layout(kp), None, 32)
-        dk1, db1 = _wgrad_mma(1, dz, x, 32, 64)
-        dx = _conv_mma(dz, _mma_transposed_layout(k1), None, 64)
+        grads, _ = head_mma_backward(*ctx.saved_tensors, g)
         LAUNCHES["bwd"] += 1
-        return (
-            dx, dk1.to(k1_dt), db1.to(b1_dt), dkp.to(kp_dt),
-            db2_phases.reshape(4, 32).sum(dim=0).to(b2_dt), red[:32].to(w3_dt),
-            red[32].to(b3_dt).reshape(b3_shape),
-        )
+        return grads
 
 
 class _HeadFn(torch.autograd.Function):
@@ -282,19 +298,42 @@ def head_interior(x, k1, b1, kp, b2, w3, b3):
     return fn.apply(x, k1, b1, kp, b2, w3, b3)
 
 
-def bound(n: int, h: int, w: int, itemsize: int) -> dict[str, tuple[int, float]]:
-    """(least bytes, f32 operations) of each direction at (n, 64, h, w).
+def head_interior_mma_emulated(x, k1, b1, kp, b2, w3, b3, g, rounded=True, given=None):
+    """Plain f32 version of the bf16 tensor-core path's arithmetic.
 
-    Forward: x in, z out (kept for the backward), y4 out; conv1 and the
-    phase conv. Backward: x, z and g in, dx out (d_phases and dz are this
-    design's intermediates, not the function's); conv1's and the phase
-    conv's input-, weight- and phase-gradient products."""
-    px = n * h * w
-    conv1 = 2 * px * 32 * 64 * 9
-    phases = 2 * px * 128 * 32 * 9
-    fwd_bytes = px * 64 * itemsize + px * 32 * itemsize + px * 4 * 4
-    bwd_bytes = px * 64 * itemsize * 2 + px * 32 * itemsize + px * 4 * 4
-    return {
-        "fwd": (fwd_bytes, float(conv1 + phases)),
-        "bwd": (bwd_bytes, float(2 * conv1 + 3 * phases)),
-    }
+    x, k1 and kp enter as bf16 values; z, d_phases, dz and dx are rounded to
+    bf16 where `head_mma_forward` / `head_mma_backward` store them; every
+    product and sum is f32 (run it with TF32 off). Returns y4, the gradients
+    of (x, k1, b1, kp, b2, w3, b3) for the cotangent g (n, 4, h, w), each in
+    its input's dtype, and the intermediates (z, d_phases, dz).
+
+    `given`, the kernels' own (z, d_phases, dz), makes each stage start from
+    what the kernels computed, so every stage is held on its own: otherwise a
+    one-ulp difference in a rounded z tips relu sides downstream, which
+    moves the gradients by ~1e-3 in either version. With `rounded=False`
+    nothing is rounded: the same analytic backward in plain f32."""
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if rounded else (lambda t: t)
+    n, _, h, w = x.shape
+    xf, k1f, kpf = (rnd(t.float()) for t in (x, k1, kp))
+    b1f, b2f, w3f, g = b1.float(), b2.float(), w3.float(), g.float()
+    z = rnd(F.conv2d(xf, k1f, b1f, padding=1))
+    z_in = given[0].float() if given is not None else z
+    ph = F.conv2d(z_in, kpf, padding=1).reshape(n, 4, 32, h, w)
+    t = torch.relu(ph + b2f[None, None, :, None, None])
+    y4 = torch.einsum("njchw,c->njhw", t, w3f) + b3.float()
+    gw = g[:, :, None] * w3f[None, None, :, None, None]
+    dph = rnd(torch.where(t > 0, gw, 0.0)).reshape(n, 128, h, w)
+    dph_in = given[1].float() if given is not None else dph
+    dz = rnd(torch.nn.grad.conv2d_input(z.shape, kpf, dph_in, padding=1))
+    dz_in = given[2].float() if given is not None else dz
+    grads = (
+        rnd(torch.nn.grad.conv2d_input(x.shape, k1f, dz_in, padding=1)),
+        torch.nn.grad.conv2d_weight(xf, k1.shape, dz_in, padding=1),
+        dz_in.sum(dim=(0, 2, 3)),
+        torch.nn.grad.conv2d_weight(z_in, kp.shape, dph_in, padding=1),
+        dph_in.sum(dim=(0, 2, 3)).reshape(4, 32).sum(dim=0),
+        torch.einsum("njhw,njchw->c", g, t),
+        g.sum().reshape(b3.shape),
+    )
+    grads = tuple(d.to(a.dtype) for d, a in zip(grads, (x, k1, b1, kp, b2, w3, b3)))
+    return y4, grads, (z, dph, dz)

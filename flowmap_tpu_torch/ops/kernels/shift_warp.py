@@ -12,7 +12,8 @@ window, and the backward is the transposed stencil written as a gather over
 each input pixel's window of output pixels -- deterministic, no atomics.
 Both match the plain stencil bit for bit (same f32 operations in the same
 order). One thread per (pixel, 16-byte channel vector). Bound: bytes
-(features and grid read once, result written once) -- see `bound_bytes`.
+(features and grid read once, result written once; `chip_smoke.py` computes
+it).
 
 Dispatch is by device only: CPU tensors take the plain stencil, CUDA tensors
 take the kernel or raise. The grid is frozen optical flow: no gradient.
@@ -88,9 +89,3 @@ def warp_shifts(
     grid = grid.detach()
     build.require_cuda_tensors("shift_warp", input=input_nhwc, grid=grid)
     return _ShiftWarpFn.apply(input_nhwc, grid, int(radius_y), int(radius_x))
-
-
-def bound_bytes(n: int, h: int, w: int, c: int, itemsize: int) -> dict[str, int]:
-    """Least bytes each direction must move: features in, grid in, result out."""
-    each = 2 * n * h * w * c * itemsize + n * h * w * 2 * 4
-    return {"fwd": each, "bwd": each}

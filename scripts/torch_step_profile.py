@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Where the time of the port's overfit step goes, on one NVIDIA GPU.
 
-Runs the main path of `chip_smoke.py` (150 frames at 160x224, MiDaS-small
-bf16 with folded BN, softmin intrinsics, Procrustes extrinsics, flow loss),
+Runs the port's flagship configuration (`flowmap_tpu_torch/training/
+flagship.py`: 150 frames at 160x224, MiDaS-small bf16 with folded BN,
+softmin intrinsics, Procrustes extrinsics, flow loss),
 then traces a few steps with `torch.profiler` and prints:
 
 - the card's name and power limit, steps/s of the traced window;
@@ -69,9 +70,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip())
 
-    import chip_smoke
     from flowmap_tpu_torch.loss.loss import LossFlowCfg
     from flowmap_tpu_torch.ops.kernels import build
+    from flowmap_tpu_torch.training import flagship
     from flowmap_tpu_torch.training.overfit import (
         OverfitTrainerCfg,
         init_train_state,
@@ -79,10 +80,9 @@ def main() -> int:
     )
 
     build.build_all()
-    batch, flows, _ = chip_smoke.main_path_inputs()
-    cfg = chip_smoke.model_cfg_for(flows)
-    state = init_train_state(cfg, OverfitTrainerCfg(), chip_smoke.NUM_FRAMES,
-                             chip_smoke.IMAGE_SHAPE)
+    batch, flows, _ = flagship.scene("cuda")
+    cfg = flagship.model_cfg(flows)
+    state = init_train_state(cfg, OverfitTrainerCfg(), flagship.NUM_FRAMES, flagship.IMAGE_SHAPE)
     step = make_train_step(cfg, [LossFlowCfg()])
     for _ in range(3):
         step(state, batch, flows)
