@@ -11,21 +11,29 @@ It imports nothing of JAX or of `flowmap_tpu`, and in order:
 2. builds every CUDA kernel from `flowmap_tpu_torch/ops/kernels/csrc/` (one
    nvcc per source, in parallel) and prints the build time;
 3. for each kernel of the overfit step -- the flow loss (A), the shift warp
-   (B), the MiDaS head interior (C) -- calls the wrapper at the shapes the
-   main path gives it and holds forward and backward against the plain
-   PyTorch version: in float32 with TF32 off (tight) and, for B and C, in
-   bfloat16 (looser; C's bf16 kernels are also held tightly against a plain
-   f32 emulation of their own roundings); any mismatch raises. Prints each
-   error and time, and A's C entry points timed alone;
-4. checks the whole train step on a small scene: one step through the
-   kernels on the card against the same step on the CPU through the plain
-   versions;
+   (B), the MiDaS head interior (C), the tracking loss (D: sampling and
+   pair loss) and the bounded-radius feature warp (E) -- calls the wrapper
+   at the shapes the main path gives it and holds forward and backward
+   against the plain PyTorch version: in float32 with TF32 off (tight) and,
+   for B, C and E, in bfloat16 (C's bf16 kernels are also held tightly
+   against a plain f32 emulation of their own roundings; E also with a
+   radius below the displacements, where its window cuts); any mismatch
+   raises. Prints each error and time, A's and D's C entry points timed
+   alone, and how far two runs of the two backwards that use atomics (D's
+   sampling, E) differ;
+4. checks the whole train step (flow and tracking losses) on a small scene:
+   one step through the kernels on the card against the same step on the
+   CPU through the plain versions;
 5. drives the main path: a 150-frame 160x224 synthetic scene, the
    autosized warp radii (the shift branch must be taken), `init_train_state`
    for MiDaS-small (folded BN, bf16, random weights from a seed), softmin
-   intrinsics and Procrustes extrinsics, flow loss, 2 warm-up and 5 timed
-   Adam steps. Every kernel's launch counter must rise on every step; the
-   loss must be finite. Prints steps/s and peak memory;
+   intrinsics and Procrustes extrinsics, the flow loss and the tracking loss
+   (exact packed tracks: 30 segments of 41 frames and 1225 points, enabled
+   from step 0 so that its backward is live), 2 warm-up and 5 timed Adam
+   steps. The launch counters of A, B, C and D must rise on every step; the
+   losses must be finite and the tracking loss not zero. Prints steps/s and
+   peak memory. Then the same step with `warp_impl="pallas"`, 1 warm-up
+   and 2 timed steps: E must be launched on each, B on none;
 6. prints one JSON line with every kernel's launches, error and times, and
    as the last line `{"ok": true, "device": {...}}`.
 
@@ -44,6 +52,9 @@ from pathlib import Path
 
 WARMUP_STEPS = 2
 TIMED_STEPS = 5
+# The second path (the bounded-radius warp in place of the shift warp).
+PALLAS_WARMUP_STEPS = 1
+PALLAS_TIMED_STEPS = 2
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense; f32 without tensor cores
@@ -81,6 +92,35 @@ TOL = {
     # gradients by ~2e-3..4e-3 (H100, 150 x 80 x 112).
     "head_bf16_emulated_stage_rel": 1e-3,
     "head_bf16_emulated_rel": 1e-2,
+    # Tracking loss, f32. The sampling gathers four corners where the plain
+    # version contracts one-hot weights; the pair loss sums 61.8M terms in
+    # another order than the plain version's reduction; d_surface is summed by
+    # atomics. The in-frame mask of a reprojected point is a step: of 61.8M
+    # pair-points a few tens land within an f32 rounding of the frame's edge
+    # and fall on either side of it in the two versions (and in a float64
+    # run, which the check prints). Each such pair adds or drops one whole
+    # term: ~1 in one point's d_xyz (of a largest value of ~40), ~1e-3 of the
+    # largest d_M entry, single pixels of d_surfaces by ~1e-2 of the largest;
+    # the valid count, an f32 sum of 4.9e7 ones, cannot show them. So
+    # gradients that hold such terms are compared in relative L2 norm, d_xyz
+    # also by the share of its values that are off by more than 1e-4 of the
+    # largest, and the sums over all points (loss, gradients to poses and
+    # intrinsics) relative to their size.
+    "track_loss_value_rel": 1e-4,
+    "track_loss_valid_rel": 1e-6,
+    "track_loss_grad_rel_l2": 1e-3,
+    "track_kernel_rel": 1e-4,  # sampling fwd and bwd, pair-loss sums: max abs / largest
+    "track_pair_bwd_rel_l2": 3e-3,  # d_xyz and d_M
+    "track_pair_bwd_off_share": 1e-4,  # share of d_xyz values off by > 1e-4 of the largest
+    "track_pair_bwd_dm_rel": 1e-2,  # d_M: max abs / largest
+    # Feature warp. f32: the plain version's column product is a matmul
+    # (fused multiply-adds), the kernel rounds each product; the backward sums
+    # in another order. bf16: the plain version rounds where the kernel does
+    # and the products are exact in f32, so the forward should be equal; the
+    # backward's f32 sums differ in order, which the final rounding shows as
+    # at most one bf16 ulp (2^-8 relative, so 2^-7 of the largest value).
+    "warp_features_f32_rel": 1e-5,
+    "warp_features_bf16_rel": 2.0 ** -7,
     # Whole step, GPU kernels vs CPU plain versions, f32.
     "step_loss_rel": 1e-3,
     "step_grad_rel": 1e-2,
@@ -163,6 +203,33 @@ def head_bound(n: int, h: int, w: int, itemsize: int):
     fwd = px * 64 * itemsize + px * 32 * itemsize + mask + px * 4 * 4
     bwd = px * 64 * itemsize * 2 + px * 32 * itemsize + mask + px * 4 * 4
     return {"fwd": (fwd, conv1 + phases), "bwd": (bwd, 2 * conv1 + 2 * phases)}
+
+
+def track_loss_bound(f, h, w, s, l, p, texels: int):
+    """D, f32, per kernel. Sampling: xy in, the `texels` distinct surface
+    texels this run's points touch (12 B each), xyz out; ~40 operations a
+    point. Its backward: xy and d_xyz in, the whole d_surface out; ~30. Pair
+    loss: xyz, xy, visibility and M in, two sums out; ~55 operations a
+    pair-point (projection 18, divide and clamp 10, residual and root 10,
+    huber 5, masks and sums 12), each division and root counted as one. Its
+    backward also writes d_xyz and d_M; ~105 (the forward again without the
+    huber value, then the VJP)."""
+    points, pair_points = s * l * p, s * l * l * p
+    pair_in = points * (12 + 8 + 1) + s * l * l * 48
+    return {
+        "sample_fwd": (points * 8 + texels * 12 + points * 12, points * 40.0),
+        "sample_bwd": (points * (8 + 12) + f * h * w * 12, points * 30.0),
+        "pair_fwd": (pair_in, pair_points * 55.0),
+        "pair_bwd": (pair_in + points * 12 + s * l * l * 48, pair_points * 105.0),
+    }
+
+
+def warp_features_bound(n: int, h: int, w: int, c: int, itemsize: int):
+    """E: features (or cotangent) in, grid in (f32), result out; per output
+    channel two columns and two rows of one multiply and one add, each way."""
+    each = 2 * n * h * w * c * itemsize + n * h * w * 2 * 4
+    ops = n * h * w * c * 10.0
+    return {"fwd": (each, ops), "bwd": (each, ops)}
 
 
 def grads_of(out, inputs, g=None):
@@ -418,13 +485,283 @@ def check_head() -> list[dict]:
     return rows
 
 
+def check_track_loss(batch, depths, tracks) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from flowmap_tpu_torch.loss.mapping import MappingCfg
+    from flowmap_tpu_torch.ops import surface
+    from flowmap_tpu_torch.ops.geometry import sample_image_grid, unproject
+    from flowmap_tpu_torch.ops.kernels import build
+    from flowmap_tpu_torch.ops.kernels import track_loss as tl
+    from flowmap_tpu_torch.training.flagship import IMAGE_SHAPE, NUM_FRAMES
+
+    h, w = IMAGE_SHAPE
+    mapping = MappingCfg("huber", 0.01)
+    _, s, l, p, _ = tracks.xy.shape
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    xy_grid, _ = sample_image_grid((h, w), "cuda")
+    noisy = depths * (1 + 0.05 * torch.randn(depths.shape, generator=gen, device="cuda"))
+    surfaces = unproject(xy_grid, noisy, batch.intrinsics[:, :, None, None]).contiguous()
+    extrinsics = batch.extrinsics.clone()
+    extrinsics[..., :3, 3] += 0.01 * torch.randn(extrinsics[..., :3, 3].shape, generator=gen, device="cuda")
+    inputs = [t.requires_grad_(True) for t in (surfaces, extrinsics, batch.intrinsics.clone())]
+
+    def kernel():
+        return tl.track_loss(*inputs, tracks, (h, w), 0.01)
+
+    def plain():
+        return tl.track_loss_plain(*inputs, tracks, (h, w), mapping)
+
+    (out_k, valid_k), (out_p, valid_p) = kernel(), plain()
+    err_v = rel_err(out_k, out_p)
+    err_n = abs(float(valid_k) - float(valid_p)) / float(valid_p)
+    g_k, g_p = grads_of(out_k, inputs), grads_of(out_p, inputs)
+    err_g = [rel_l2(a, b) for a, b in zip(g_k, g_p)]
+    print(f"[D track_loss f32] {s} x {l} x {p} tracks on {NUM_FRAMES} x {h} x {w} surfaces, in "
+          f"one piece: loss sum {float(out_k.detach()):.4f} vs plain {float(out_p.detach()):.4f}: "
+          f"rel {err_v:.3e}; valid {float(valid_k):.0f} vs {float(valid_p):.0f}; grads "
+          f"(surfaces, extrinsics, intrinsics) rel L2 {[f'{e:.2e}' for e in err_g]}, max rel "
+          f"{[f'{rel_err(a, b):.2e}' for a, b in zip(g_k, g_p)]}", flush=True)
+    if not float(valid_p) > 0 or not all(bool(torch.isfinite(g).all()) for g in g_k):
+        fail("track_loss: no valid pair, or a gradient is not finite")
+    if (not err_v <= TOL["track_loss_value_rel"] or not err_n <= TOL["track_loss_valid_rel"]
+            or not max(err_g) <= TOL["track_loss_grad_rel_l2"]):
+        fail("track_loss disagrees with its plain version")
+    again = grads_of(out_k, inputs)[0]
+    print(f"[D track_loss] d_surfaces by atomics, two runs of the backward: max abs difference "
+          f"{abs_err(again, g_k[0]):.3e} (max |d_surfaces| {float(g_k[0].abs().max()):.3e})",
+          flush=True)
+    ms_wrapper = {
+        "fwd": time_ms(kernel), "fwd_plain": time_ms(plain, iters=3),
+        "bwd": time_ms(lambda: grads_of(out_k, inputs)),
+        "bwd_plain": time_ms(lambda: grads_of(out_p, inputs), iters=3),
+    }
+    del out_p, g_p, valid_p
+
+    # Each of the four kernels against its part of the plain version, on the
+    # same inputs, and timed alone through its C entry point.
+    surf = surfaces[0].detach()
+    xy, vis = tracks.xy[0].contiguous(), tracks.visibility[0].contiguous()
+    starts = tracks.starts.to(torch.int32).contiguous()
+    frame_idx = tracks.frame_index()
+    m = tl.fold_pair_projections(extrinsics[0].detach(), batch.intrinsics[0], frame_idx)
+    m_flat = m.reshape(s, l, l, 12).contiguous()
+    g_one = torch.ones(1, device="cuda")
+
+    surf_p = surf[None].clone().requires_grad_(True)
+    xyz_p, _ = surface.sample_track_points_packed(surf_p, tracks)
+    xyz_k = tl.sample_forward(surf, xy, starts)
+    xyz_in = xyz_k.clone().requires_grad_(True)
+    m_in = m.clone().requires_grad_(True)
+    sum_p, _ = tl.pair_loss_plain(xyz_in, m_in, tracks, (h, w), mapping)
+    sums_k = tl.pair_forward(xyz_k, m_flat, xy, vis, (h, w), 0.01)
+    d_xyz_p, d_m_p = grads_of(sum_p, [xyz_in, m_in])
+    d_xyz_k, d_m_k = tl.pair_backward(xyz_k, m_flat, xy, vis, (h, w), 0.01, g_one)
+    d_surf_p = grads_of(xyz_p, [surf_p], d_xyz_k)[0][0]
+    d_surf_k = tl.sample_backward(surf.shape, xy, starts, d_xyz_k)
+    errs = {
+        "sample_fwd": abs_err(xyz_k, xyz_p),
+        "sample_bwd": abs_err(d_surf_k, d_surf_p),
+        "pair_fwd": abs_err(sums_k[0], sum_p),
+        "pair_bwd": max(abs_err(d_xyz_k, d_xyz_p), abs_err(d_m_k.reshape(m.shape), d_m_p)),
+    }
+    scales = {
+        "sample_fwd": float(xyz_p.detach().abs().max()),
+        "sample_bwd": float(d_surf_p.abs().max()),
+        "pair_fwd": float(sum_p.detach().abs()),
+    }
+    rels = {k: errs[k] / scales[k] for k in scales}
+    d_m_k = d_m_k.reshape(m.shape)
+    off = (d_xyz_k - d_xyz_p).abs() > 1e-4 * d_xyz_p.abs().max()
+    pair_bwd = {
+        "d_xyz_rel_l2": rel_l2(d_xyz_k, d_xyz_p), "d_m_rel_l2": rel_l2(d_m_k, d_m_p),
+        "d_xyz_max_rel": rel_err(d_xyz_k, d_xyz_p), "d_m_max_rel": rel_err(d_m_k, d_m_p),
+        "d_xyz_off_share": float(off.float().mean()),
+    }
+    print(f"[D track_loss, kernel by kernel, same inputs] max abs err {errs}; relative to the "
+          f"largest value {({k: f'{v:.2e}' for k, v in rels.items()})}; pair backward "
+          f"{({k: f'{v:.2e}' for k, v in pair_bwd.items()})}, {int(off.any(dim=-1).sum())} of "
+          f"{s * l * p} points off", flush=True)
+    if (any(v > TOL["track_kernel_rel"] for v in rels.values())
+            or max(pair_bwd["d_xyz_rel_l2"], pair_bwd["d_m_rel_l2"]) > TOL["track_pair_bwd_rel_l2"]
+            or pair_bwd["d_xyz_off_share"] > TOL["track_pair_bwd_off_share"]
+            or pair_bwd["d_m_max_rel"] > TOL["track_pair_bwd_dm_rel"]):
+        fail("a track_loss kernel disagrees with its part of the plain version")
+    # The in-frame step again: both f32 versions against a float64 run of the
+    # plain pair loss on the same xyz.
+    tracks64 = type(tracks)(xy=tracks.xy.double(), visibility=tracks.visibility,
+                            starts=tracks.starts)
+    xyz64 = xyz_k.double().requires_grad_(True)
+    sum64, _ = tl.pair_loss_plain(xyz64, m.double(), tracks64, (h, w), mapping)
+    (d_xyz64,) = grads_of(sum64, [xyz64])
+    print(f"[D track_loss] d_xyz against a float64 run on the same xyz, rel L2 / max abs: kernel "
+          f"{rel_l2(d_xyz_k, d_xyz64):.3e} / {abs_err(d_xyz_k, d_xyz64):.3e}, plain "
+          f"{rel_l2(d_xyz_p, d_xyz64):.3e} / {abs_err(d_xyz_p, d_xyz64):.3e} "
+          f"(max |d_xyz| {float(d_xyz_p.abs().max()):.3e})", flush=True)
+    del tracks64, xyz64, sum64, d_xyz64
+
+    lib, stream = tl._lib(), build.stream_ptr(surf.device)
+    tiles = tl._num_tiles(p)
+    partial = torch.empty((s, l, tiles, 2), device="cuda")
+    dm_partial = torch.empty((s, l, tiles, l, 12), device="cuda")
+    xyz_buf, d_xyz_buf = torch.empty_like(xyz_k), torch.empty_like(xyz_k)
+    d_surf_buf = torch.zeros_like(surf)
+    dims = tl._sample_dims(surf.shape, xy)
+    pair_args = tl._pair_args(xyz_k, m_flat, xy, vis, (h, w), 0.01)
+
+    def entry(name, *args):
+        return lambda: build.check(getattr(lib, name)(*args, stream), name)
+
+    def sample_bwd_entry():
+        d_surf_buf.zero_()  # the scatter needs it cleared: part of the kernel's work
+        build.check(lib.track_sample_bwd(
+            build.ptr(xy), build.ptr(starts), build.ptr(d_xyz_k), build.ptr(d_surf_buf),
+            *dims, stream), "track_sample_bwd")
+
+    seg_nchw = surf.permute(0, 3, 1, 2)[frame_idx.reshape(-1)].contiguous().requires_grad_(True)
+    lib_grid = (xy.reshape(s * l, p, 1, 2) * 2 - 1).contiguous()
+
+    def library():
+        return F.grid_sample(seg_nchw, lib_grid, mode="bilinear", padding_mode="border",
+                             align_corners=False)
+
+    out_l = library()
+    e_lib = abs_err(out_l[..., 0].permute(0, 2, 1).reshape(xyz_k.shape), xyz_k)
+    g_lib = d_xyz_k.reshape(s * l, p, 3).permute(0, 2, 1)[..., None].contiguous()
+    ms = {
+        "sample_fwd": time_ms(entry("track_sample_fwd", build.ptr(surf), build.ptr(xy),
+                                    build.ptr(starts), build.ptr(xyz_buf), *dims), iters=20),
+        "sample_bwd": time_ms(sample_bwd_entry, iters=20),
+        "pair_fwd": time_ms(entry("track_pair_fwd", *pair_args, build.ptr(partial)), iters=20),
+        "pair_bwd": time_ms(entry("track_pair_bwd", *pair_args, build.ptr(g_one),
+                                  build.ptr(dm_partial), build.ptr(d_xyz_buf)), iters=20),
+        "sample_fwd_plain": time_ms(
+            lambda: surface.sample_track_points_packed(surf_p, tracks), iters=3),
+        "sample_bwd_plain": time_ms(lambda: grads_of(xyz_p, [surf_p], d_xyz_k), iters=3),
+        "pair_fwd_plain": time_ms(
+            lambda: tl.pair_loss_plain(xyz_in, m_in, tracks, (h, w), mapping), iters=3),
+        "pair_bwd_plain": time_ms(lambda: grads_of(sum_p, [xyz_in, m_in]), iters=3),
+        "sample_fwd_lib": time_ms(library),
+        "sample_bwd_lib": time_ms(lambda: grads_of(out_l, [seg_nchw], g_lib)),
+    }
+    corner_frames = frame_idx[:, :, None].expand(s, l, p).reshape(-1)
+    px = (xy[..., 0] * w - 0.5).reshape(-1)
+    py = (xy[..., 1] * h - 0.5).reshape(-1)
+    texel_ids = torch.cat([
+        (corner_frames * h + (torch.floor(py) + a).clamp(0, h - 1).long()) * w
+        + (torch.floor(px) + b).clamp(0, w - 1).long()
+        for a in (0, 1) for b in (0, 1)
+    ])
+    texels = int(torch.unique(texel_ids).numel())
+    bounds = track_loss_bound(NUM_FRAMES, h, w, s, l, p, texels)
+    print(f"[D track_loss] ms fwd / bwd: wrapper (fold of M, both kernels, sums) "
+          f"{ms_wrapper['fwd']:.4f} / {ms_wrapper['bwd']:.4f}, plain {ms_wrapper['fwd_plain']:.3f} / "
+          f"{ms_wrapper['bwd_plain']:.3f}; C entries alone: sample {ms['sample_fwd']:.4f} / "
+          f"{ms['sample_bwd']:.4f} (with the clearing of d_surface), pair {ms['pair_fwd']:.4f} / "
+          f"{ms['pair_bwd']:.4f}; bounds: sample "
+          f"{bound_ms(*bounds['sample_fwd'], 'float32')[0]:.4f} / "
+          f"{bound_ms(*bounds['sample_bwd'], 'float32')[0]:.4f}, pair "
+          f"{bound_ms(*bounds['pair_fwd'], 'float32')[0]:.4f} / "
+          f"{bound_ms(*bounds['pair_bwd'], 'float32')[0]:.4f}; {texels} distinct texels touched; "
+          f"F.grid_sample(border) on the gathered frames: {ms['sample_fwd_lib']:.4f} / "
+          f"{ms['sample_bwd_lib']:.4f} (max abs {e_lib:.2e} from the kernel; its backward does "
+          f"not sum a frame's segments)", flush=True)
+    lines = {"sample_fwd": "293", "sample_bwd": "323", "pair_fwd": "358", "pair_bwd": "395"}
+    rows = []
+    for name, line in lines.items():
+        b_ms, b_by = bound_ms(*bounds[name], "float32")
+        rows.append(dict(
+            name=f"track_{name}", route="cuda",
+            source="flowmap_tpu_torch/ops/kernels/csrc/track_loss.cu",
+            replaces=f"flowmap_tpu/ops/pallas/track_loss.py:{line}",
+            max_abs_err=errs[name], ms=ms[name], plain_ms=ms[f"{name}_plain"], bound_ms=b_ms,
+            bound_by=b_by, library_ms=ms.get(f"{name}_lib"),
+        ))
+    return rows
+
+
+def check_warp_features(flows, model_cfg) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from flowmap_tpu_torch.ops.geometry import sample_image_grid
+    from flowmap_tpu_torch.ops.kernels import warp_features as wf
+    from flowmap_tpu_torch.training.flagship import IMAGE_SHAPE, NUM_FRAMES
+
+    h, w = IMAGE_SHAPE
+    n, hn, wn, c = NUM_FRAMES - 1, h // 2, w // 2, 64
+    radius = max(1, model_cfg.backbone.warp_radius_half)
+    fb_half = flows.backward[0].reshape(n, hn, 2, wn, 2, 2).mean(dim=(2, 4))
+    xy, _ = sample_image_grid((hn, wn), "cuda")
+    grid = ((xy + fb_half) * 2.0 - 1.0).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        feats = torch.randn((n, c, hn, wn), generator=gen, device="cuda").to(dtype)
+        feats.requires_grad_(True)
+        g = torch.randn(feats.shape, generator=gen, device="cuda").to(dtype)
+        results = {}
+        # The autosized radius, and one below the displacements, where the
+        # window drops corners.
+        for r in (radius, 0):
+            out_k, out_p = wf.warp_features(feats, grid, r), wf.warp_features_plain(feats, grid, r)
+            (d_k,), (d_p,) = grads_of(out_k, [feats], g), grads_of(out_p, [feats], g)
+            e_f, e_b = rel_err(out_k, out_p), rel_err(d_k, d_p)
+            n_f = int((out_k != out_p).sum())
+            print(f"[E warp_features {name}] radius {r}: fwd max rel {e_f:.3e} ({n_f} of "
+                  f"{out_k.numel()} values differ), bwd max rel {e_b:.3e}", flush=True)
+            if max(e_f, e_b) > TOL[f"warp_features_{name}_rel"]:
+                fail(f"warp_features {name} disagrees with its plain version at radius {r}")
+            results[r] = (out_k, out_p, d_k, d_p)
+        cut = abs_err(results[radius][0], results[0][0])
+        if not cut > 1e-2:
+            fail("warp_features: radius 0 cut nothing, the window is not exercised")
+        out_k, out_p, d_k, d_p = results[radius]
+        del results
+        if dtype != torch.bfloat16:
+            continue
+        again = grads_of(out_k, [feats], g)[0]
+        print(f"[E warp_features bf16] feature gradient by atomics, two runs: "
+              f"{int((again != d_k).sum())} of {d_k.numel()} values differ, max abs "
+              f"{abs_err(again, d_k):.3e}; radius 0 moves the result by up to {cut:.3f}", flush=True)
+
+        def library():
+            return F.grid_sample(feats, grid.to(dtype), mode="bilinear",
+                                 padding_mode="zeros", align_corners=False)
+
+        out_l = library()
+        print(f"[E warp_features bf16] F.grid_sample(zeros), grid in bf16, unbounded rows: max "
+              f"abs {abs_err(out_l, out_k):.3e} from the kernel", flush=True)
+        ms = {
+            "fwd": time_ms(lambda: wf.warp_features(feats, grid, radius)),
+            "fwd_plain": time_ms(lambda: wf.warp_features_plain(feats, grid, radius), iters=3),
+            "fwd_lib": time_ms(library),
+            "bwd": time_ms(lambda: grads_of(out_k, [feats], g)),
+            "bwd_plain": time_ms(lambda: grads_of(out_p, [feats], g), iters=3),
+            "bwd_lib": time_ms(lambda: grads_of(out_l, [feats], g)),
+        }
+        bounds = warp_features_bound(n, hn, wn, c, 2)
+        for d, err in (("fwd", abs_err(out_k, out_p)), ("bwd", abs_err(d_k, d_p))):
+            b_ms, b_by = bound_ms(*bounds[d], "bfloat16")
+            rows.append(dict(
+                name=f"warp_features_{d}", route="cuda",
+                source="flowmap_tpu_torch/ops/kernels/csrc/warp_features.cu",
+                replaces="flowmap_tpu/ops/pallas/warp_kernel.py:" + ("290" if d == "fwd" else "334"),
+                max_abs_err=err, ms=ms[d], plain_ms=ms[f"{d}_plain"], bound_ms=b_ms,
+                bound_by=b_by, library_ms=ms[f"{d}_lib"],
+            ))
+    return rows
+
+
 def check_small_step() -> None:
-    """Two f32 train steps on a small scene: kernels on the card vs the plain
-    versions on the CPU. Compares both losses and every gradient leaf of the
-    first step (per leaf, relative to max(|leaf|, 1e-3 * the largest leaf))."""
+    """Two f32 train steps (flow and tracking losses) on a small scene:
+    kernels on the card vs the plain versions on the CPU. Compares both
+    losses and every gradient leaf of the first step (per leaf, relative to
+    max(|leaf|, 1e-3 * the largest leaf))."""
     import torch
 
-    from flowmap_tpu_torch.loss.loss import LossFlowCfg
     from flowmap_tpu_torch.training import flagship
     from flowmap_tpu_torch.training.overfit import (
         OverfitTrainerCfg,
@@ -434,14 +771,19 @@ def check_small_step() -> None:
 
     results = {}
     for device in ("cpu", "cuda"):
-        batch, flows, _ = flagship.scene(device, num_frames=8, image_shape=(64, 96))
+        batch, flows, depths = flagship.scene(device, num_frames=8, image_shape=(64, 96))
+        tracks = flagship.tracks(batch, depths, interval=2, radius=3, grid_size=6)
         cfg = flagship.model_cfg(flows, compute_dtype="float32")
         state = init_train_state(cfg, OverfitTrainerCfg(), 8, (64, 96), device=device)
-        step = make_train_step(cfg, [LossFlowCfg()])
+        step = make_train_step(cfg, flagship.loss_cfgs(tracking_after=0))
         indices = torch.arange(0, 64 * 96, 3, device=device)
-        losses = [float(step(state, batch, flows, intrinsics_indices=indices)["loss/total"])]
+        first = step(state, batch, flows, tracks, intrinsics_indices=indices)
+        if not float(first["loss/tracking"]) > 0:
+            fail("small step: the tracking loss is zero")
+        losses = [float(first["loss/total"])]
         grads = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}
-        losses.append(float(step(state, batch, flows, intrinsics_indices=indices)["loss/total"]))
+        losses.append(float(
+            step(state, batch, flows, tracks, intrinsics_indices=indices)["loss/total"]))
         results[device] = (losses, grads)
     (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
     e_loss = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
@@ -459,57 +801,71 @@ def check_small_step() -> None:
         fail("the train step on the card disagrees with the CPU reference")
 
 
-def run_main_path(batch, flows) -> dict:
+def run_main_path(batch, flows, tracks, warp_impl: str, warmup: int, timed: int) -> dict:
+    """The full-width overfit step with both losses, on the shift warp
+    ("fused") or on the bounded-radius warp ("pallas"). Returns the launch
+    counts of this path's steps."""
     import torch
 
-    from flowmap_tpu_torch.loss.loss import LossFlowCfg
     from flowmap_tpu_torch.ops import kernels
-    from flowmap_tpu_torch.training.flagship import IMAGE_SHAPE, NUM_FRAMES, model_cfg
+    from flowmap_tpu_torch.training.flagship import IMAGE_SHAPE, NUM_FRAMES, loss_cfgs, model_cfg
     from flowmap_tpu_torch.training.overfit import (
         OverfitTrainerCfg,
         init_train_state,
         make_train_step,
     )
 
-    cfg = model_cfg(flows)
+    tag = f"main, warp_impl={warp_impl}"
+    cfg = model_cfg(flows, warp_impl=warp_impl)
     bb = cfg.backbone
     ry, rx = bb.warp_radius_half, bb.warp_radius_half_x
     taps = (2 * ry + 2) * (2 * rx + 2)
-    print(f"[main] warp radii: full ({bb.warp_radius}, {bb.warp_radius_x}), "
+    print(f"[{tag}] warp radii: full ({bb.warp_radius}, {bb.warp_radius_x}), "
           f"half ({ry}, {rx}), tap window {taps}", flush=True)
     if taps > 256:
         fail("the shift-warp branch is not taken at the main path's radii")
+    # The warp this path must take, and the one it must leave alone.
+    used, unused = ("shift_warp", "warp_features") if warp_impl == "fused" else (
+        "warp_features", "shift_warp")
 
     state = init_train_state(cfg, OverfitTrainerCfg(lr=3e-5), NUM_FRAMES, IMAGE_SHAPE)
-    step = make_train_step(cfg, [LossFlowCfg()])
+    # The tracking loss's gate opens at step 50 in the product; here it is
+    # open from step 0, so that these few steps run its backward with a
+    # cotangent that is not zero.
+    step = make_train_step(cfg, loss_cfgs(tracking_after=0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     kernels.reset_launch_counts()
-    losses = []
-    step_times = []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
+    losses, tracking, step_times = [], [], []
+    for i in range(warmup + timed):
         before = kernels.launch_counts()
         t0 = time.perf_counter()
-        metrics = step(state, batch, flows)
+        metrics = step(state, batch, flows, tracks)
         torch.cuda.synchronize()
         step_times.append(time.perf_counter() - t0)
         after = kernels.launch_counts()
-        idle = [k for k in after if after[k] <= before[k]]
+        idle = [k for k in after if after[k] <= before[k] and not k.startswith(unused)]
         if idle:
-            fail(f"step {i}: kernels not launched: {idle}")
+            fail(f"[{tag}] step {i}: kernels not launched: {idle}")
         losses.append(float(metrics["loss/total"]))
+        tracking.append(float(metrics["loss/tracking"]))
     launches = kernels.launch_counts()
-    timed = step_times[WARMUP_STEPS:]
-    sps = len(timed) / sum(timed)
+    timed_steps = step_times[warmup:]
+    sps = len(timed_steps) / sum(timed_steps)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[main] losses {losses}", flush=True)
-    print(f"[main] {NUM_FRAMES} frames {IMAGE_SHAPE}: {sps:.4f} steps/s over "
-          f"{len(timed)} steps (step times s: {[round(t, 4) for t in step_times]}), "
-          f"peak memory {peak:.2f} GiB, launches {launches}", flush=True)
-    if not all(math.isfinite(x) for x in losses):
-        fail("main-path loss not finite")
-    return launches
+    print(f"[{tag}] losses {losses}; loss/tracking {tracking}", flush=True)
+    print(f"[{tag}] {NUM_FRAMES} frames {IMAGE_SHAPE}, flow + tracking losses: {sps:.4f} "
+          f"steps/s over {len(timed_steps)} steps (step times s: "
+          f"{[round(t, 4) for t in step_times]}), peak memory {peak:.2f} GiB, "
+          f"launches {launches}", flush=True)
+    if not all(math.isfinite(x) for x in losses + tracking):
+        fail(f"[{tag}] a loss is not finite")
+    if not all(x > 0 for x in tracking):
+        fail(f"[{tag}] the tracking loss is zero")
+    if any(v for k, v in launches.items() if k.startswith(unused)):
+        fail(f"[{tag}] {unused} was launched on this path")
+    return {k: v for k, v in launches.items() if not k.startswith(unused)}
 
 
 def main() -> int:
@@ -544,13 +900,25 @@ def main() -> int:
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     batch, flows, depths = flagship.scene("cuda")
+    tracks = flagship.tracks(batch, depths)
     cfg = flagship.model_cfg(flows)
     rows = check_flow_loss(batch, flows, depths)
     rows += check_shift_warp(flows, cfg)
     rows += check_head()
+    rows += check_track_loss(batch, depths, tracks)
+    rows += check_warp_features(flows, cfg)
     check_small_step()
 
-    launches = run_main_path(batch, flows)
+    # Each path's launches are counted over its own steps: the counts are set
+    # to 0 just before it and read just after.
+    launches = run_main_path(batch, flows, tracks, "fused", WARMUP_STEPS, TIMED_STEPS)
+    launches.update({
+        k: v
+        for k, v in run_main_path(
+            batch, flows, tracks, "pallas", PALLAS_WARMUP_STEPS, PALLAS_TIMED_STEPS
+        ).items()
+        if k.startswith("warp_features")
+    })
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:

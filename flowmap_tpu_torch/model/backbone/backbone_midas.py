@@ -4,15 +4,18 @@ Counterpart of `flowmap_tpu/model/backbone/backbone_midas.py` (reference
 `flowmap/model/backbone/backbone_midas.py:16-127`). Depth mapping
 ("original": 1e3 / (x + 0.1), "exp": exp(x / 1000) + 0.01) and the
 native-resolution weight path (`:188-289`): the 2x2-pooled backward flow
-warps the half-resolution decoder features (NHWC, divided by 20) with the
-shift-window warp kernel (`ops/kernels/shift_warp.py`), a 3-layer MLP with a
-split first layer scores each pixel, sigmoid then clip at 1e-4, and the
-scalar weight map is upsampled to full resolution.
+warps the half-resolution decoder features (divided by 20), a 3-layer MLP
+with a split first layer scores each pixel, sigmoid then clip at 1e-4, and
+the scalar weight map is upsampled to full resolution. The warp is the
+shift-window kernel (`ops/kernels/shift_warp.py`) while the tap window is at
+most 256 and `warp_impl` is "fused" or "matmul"; otherwise the
+bounded-radius kernel (`ops/kernels/warp_features.py`) for "fused" and
+"pallas", the windowed one-hot matmul (`ops/warp.py`) for "matmul", and
+`grid_sample_2d` for "gather".
 
-Not ported yet (they raise NotImplementedError): the bounded-radius NCHW
-warp taken when the shift tap window exceeds 256 (`warp_features`, Pallas
-kernel E), the full-resolution weight path (`weights_resolution="full"`,
-kernel H), the fused weight-MLP option (kernel I), and DPT_Large.
+Not ported yet (they raise NotImplementedError): the full-resolution weight
+path (`weights_resolution="full"`, kernel H), the fused weight-MLP option
+(kernel I), and DPT_Large.
 """
 
 from __future__ import annotations
@@ -24,8 +27,11 @@ import torch
 import torch.nn as nn
 
 from ...ops.geometry import earlier, later, sample_image_grid
+from ...ops.grid_sample import grid_sample_2d
 from ...ops.kernels.shift_warp import warp_shifts
+from ...ops.kernels.warp_features import warp_features
 from ...ops.resize import resize_bilinear
+from ...ops.warp import warp_bilinear_matmul
 from ...types import BackboneOutput, Batch, Flows
 from .midas_net import MidasSmall
 
@@ -117,27 +123,33 @@ class BackboneMidas(nn.Module):
         if cfg.fused_weight_mlp:
             raise NotImplementedError("the fused weight-MLP kernel is not ported yet")
 
+        # 2x2-mean-pooled backward flow and the half-resolution sampling grid.
+        fb = flows.backward.float()
+        fb_half = fb.reshape(b, f - 1, hn, 2, wn, 2, 2).mean(dim=(3, 5))
+        xy, _ = sample_image_grid((hn, wn), fb.device, torch.float32)
+        grid = ((xy + fb_half) * 2.0 - 1.0).reshape(b * (f - 1), hn, wn, 2).detach()
+
         radius, radius_x = self._radii()
         use_shifts = (
             cfg.warp_impl in ("fused", "matmul")
             and (2 * radius + 2) * (2 * radius_x + 2) <= 256
         )
-        if not use_shifts:
-            raise NotImplementedError(
-                "shift tap window above 256 (or warp_impl without the shift "
-                "warp): the warp_features kernel is not ported yet"
-            )
-
-        # 2x2-mean-pooled backward flow and the half-resolution sampling grid.
-        fb = flows.backward.float()
-        fb_half = fb.reshape(b, f - 1, hn, 2, wn, 2, 2).mean(dim=(3, 5))
-        xy, _ = sample_image_grid((hn, wn), fb.device, torch.float32)
-        grid = ((xy + fb_half) * 2.0 - 1.0).reshape(b * (f - 1), hn, wn, 2)
-
-        feats_nhwc = (features.permute(0, 2, 3, 1).reshape(b, f, hn, wn, cn) / 20.0)
-        earlier_f = earlier(feats_nhwc).reshape(b * (f - 1), hn, wn, cn).contiguous()
-        warped = warp_shifts(earlier_f, grid.detach().contiguous(), radius, radius_x)
-        later_f = later(feats_nhwc).reshape(b * (f - 1), hn, wn, cn)
+        if use_shifts:
+            feats_nhwc = features.permute(0, 2, 3, 1).reshape(b, f, hn, wn, cn) / 20.0
+            earlier_f = earlier(feats_nhwc).reshape(b * (f - 1), hn, wn, cn).contiguous()
+            warped = warp_shifts(earlier_f, grid.contiguous(), radius, radius_x)
+            later_f = later(feats_nhwc).reshape(b * (f - 1), hn, wn, cn)
+        else:
+            feats = (features / 20.0).reshape(b, f, cn, hn, wn)
+            flat_feats = earlier(feats).reshape(b * (f - 1), cn, hn, wn)
+            if cfg.warp_impl in ("fused", "pallas"):
+                warped = warp_features(flat_feats, grid, radius)
+            elif cfg.warp_impl == "matmul":
+                warped = warp_bilinear_matmul(flat_feats, grid, radius=radius)
+            else:
+                warped = grid_sample_2d(flat_feats, grid, padding_mode="zeros")
+            warped = warped.permute(0, 2, 3, 1)
+            later_f = later(feats).reshape(b * (f - 1), cn, hn, wn).permute(0, 2, 3, 1)
 
         # Split first layer: W @ [warped; later] = W_a warped + W_b later.
         layer0 = self.corr_weighter[0]

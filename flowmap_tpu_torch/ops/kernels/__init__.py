@@ -6,12 +6,14 @@ direction. A wrapper dispatches by device only: CPU tensors take the plain
 version, CUDA tensors take the kernel or raise.
 """
 
-from . import flow_loss, head_kernel, shift_warp
+from . import flow_loss, head_kernel, shift_warp, track_loss, warp_features
 
 KERNEL_MODULES = {
     "flow_loss": flow_loss,
     "shift_warp": shift_warp,
     "head_interior": head_kernel,
+    "track": track_loss,
+    "warp_features": warp_features,
 }
 
 

@@ -3,8 +3,9 @@
 Each source has a plain C interface and is compiled by `nvcc` into its own
 shared library for `sm_90a`, then loaded with `ctypes`: no PyTorch headers,
 so a build takes seconds. Libraries go to `build/kernels/` at the root of the
-checkout (listed in `.gitignore`), named by a hash of the source and flags so
-an edited source is rebuilt and an unchanged one is reused. Nothing is built
+checkout (listed in `.gitignore`), named by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Nothing is built
 when a module is imported: the first launch builds what it needs, and
 `build_all()` builds every source in parallel, one `nvcc` each.
 """
@@ -21,12 +22,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# Per-source extra flags. The warp and the flow loss reproduce PyTorch's
+# Per-source extra flags. The warps and the losses reproduce PyTorch's
 # elementwise rounding, so multiply-add contraction is off there.
 SOURCES = {
     "flow_loss": ["--fmad=false"],
     "shift_warp": ["--fmad=false"],
     "head_kernel": [],
+    "track_loss": ["--fmad=false"],
+    "warp_features": ["--fmad=false"],
 }
 
 _BASE_FLAGS = [
@@ -51,7 +54,8 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[Path, list[str]]:
     src = CSRC / f"{name}.cu"
     flags = _BASE_FLAGS + SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so", flags
 
 

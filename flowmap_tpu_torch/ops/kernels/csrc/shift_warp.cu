@@ -24,48 +24,9 @@
 // channels, channel vector fastest, so a warp's loads are contiguous.
 // Bound: bytes (features and grid read once, output written once).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_common.cuh"
 
 namespace {
-
-template <typename T>
-struct Pack;
-
-template <>
-struct Pack<float> {
-  static constexpr int kN = 4;
-  static __device__ void load(const float* p, float (&v)[4]) {
-    float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  }
-  static __device__ void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-  static __device__ float round(float x) { return x; }
-};
-
-template <>
-struct Pack<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  static __device__ void load(const __nv_bfloat16* p, float (&v)[8]) {
-    uint4 q = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&q);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(b[k]);
-  }
-  static __device__ void store(__nv_bfloat16* p, const float (&v)[8]) {
-    uint4 q;
-    __nv_bfloat16* b = reinterpret_cast<__nv_bfloat16*>(&q);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) b[k] = __float2bfloat16(v[k]);
-    *reinterpret_cast<uint4*>(p) = q;
-  }
-  static __device__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-};
 
 struct Params {
   float ox, tx, oy, ty;  // floor-corner offsets (integer-valued) and fractions
@@ -75,8 +36,8 @@ __device__ __forceinline__ Params sample_params(const float* grid, int i, int j,
                                                 int h, int w) {
   const float gx = grid[0];
   const float gy = grid[1];
-  const float x = ((gx + 1.0f) * (float)w - 1.0f) * 0.5f;
-  const float y = ((gy + 1.0f) * (float)h - 1.0f) * 0.5f;
+  const float x = unnormalize(gx, w);
+  const float y = unnormalize(gy, h);
   const float x0 = floorf(x);
   const float y0 = floorf(y);
   Params p;

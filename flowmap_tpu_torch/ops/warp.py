@@ -1,7 +1,9 @@
-"""Small-radius bilinear displacement warp as a shift-window stencil.
+"""Bilinear displacement warps without gathers: the shift-window stencil and
+the windowed one-hot matmul.
 
-Counterpart of `flowmap_tpu/ops/warp.py:warp_bilinear_shifts` and
-`radius_for_flows`. This is the plain version of the shift-warp kernel
+Counterpart of `flowmap_tpu/ops/warp.py` (`warp_bilinear_shifts`,
+`warp_bilinear_matmul`, `radius_for_flows`). The stencil is the plain version
+of the shift-warp kernel
 (`ops/kernels/shift_warp.py`): `F.grid_sample(padding_mode="zeros",
 align_corners=False)` semantics restricted to displacements within
 (radius_y, radius_x) pixels. Each output pixel's four bilinear taps lie in a
@@ -11,6 +13,16 @@ image read the zero padding.
 
 The backward to the features is the hand-written mirror stencil of the JAX
 custom VJP; the sampling grid is frozen optical flow and gets no gradient.
+
+`warp_bilinear_matmul` takes any column and a vertical window of
+`2 * radius + 2` rows: exact column interpolation by a one-hot-pair matrix
+per output row, and row interpolation over statically shifted copies. It is
+exact while every vertical displacement stays within `radius`. Beyond it the
+JAX package has two behaviours: its matmul form clamps the floor corner's
+slot to the window's edge, and its Pallas kernel (`warp_kernel.py`) drops a
+corner outside the window. `windowed_matmul_warp` has both; the second is
+the plain version of the warp-features kernel
+(`ops/kernels/warp_features.py`).
 """
 
 from __future__ import annotations
@@ -104,3 +116,86 @@ def warp_bilinear_shifts(
 ) -> torch.Tensor:  # (n, h, w, c)
     """Shift-stencil bilinear warp; no gradient to `grid`."""
     return _WarpShifts.apply(input_nhwc, grid.detach(), radius_y, radius_x)
+
+
+class _RowWeight(torch.autograd.Function):
+    """weight * contrib in f32. Backward: the row weight folded into the
+    cotangent and rounded to the feature dtype before it meets the column
+    weights, the rounding point of the warp-features kernels. In float32
+    this is the plain product rule."""
+
+    @staticmethod
+    def forward(ctx, weight, contrib, dtype):
+        ctx.save_for_backward(weight)
+        ctx.dtype = dtype
+        return weight * contrib
+
+    @staticmethod
+    def backward(ctx, g):
+        (weight,) = ctx.saved_tensors
+        return None, (weight * g).to(ctx.dtype).float(), None
+
+
+def windowed_matmul_warp(
+    input: torch.Tensor,  # (n, c, h, w)
+    grid: torch.Tensor,  # (n, h, wg, 2) in [-1, 1], xy order
+    radius: int,
+    beyond: str,
+) -> torch.Tensor:  # (n, c, h, wg)
+    """`F.grid_sample(zeros, align_corners=False)` restricted to a vertical
+    window of `radius` rows around each output row; columns are unbounded.
+
+    `beyond` says what happens to a corner whose row is outside the window:
+    "clamp" moves the floor corner's slot to the window's edge
+    (`flowmap_tpu/ops/warp.py:warp_bilinear_matmul`), "drop" gives it weight
+    zero (`flowmap_tpu/ops/pallas/warp_kernel.py`). The column weights are
+    rounded to the feature dtype; products, row weights and sums are f32; the
+    result is rounded once. Gradients flow to `input` and, through the
+    fractions, to `grid`."""
+    if beyond not in ("clamp", "drop"):
+        raise ValueError(f"unknown window rule: {beyond}")
+    n, c, h, w = input.shape
+    _, hg, wg, _ = grid.shape
+    if hg != h:
+        raise ValueError("the matmul warp needs row-aligned output (a displacement warp)")
+    grid = grid.float()
+    x = ((grid[..., 0] + 1.0) * w - 1.0) * 0.5
+    y = ((grid[..., 1] + 1.0) * h - 1.0) * 0.5
+
+    # Column one-hot pair, zero outside [0, w - 1] ("zeros" padding in x).
+    x0 = torch.floor(x)
+    tx = (x - x0)[..., None]
+    x0i = x0.long()
+    cols = torch.arange(w, device=input.device)
+    onehot0 = (cols == x0i[..., None]).float()
+    onehot1 = (cols == (x0i + 1)[..., None]).float()
+    wx = (onehot0 * (1.0 - tx) + onehot1 * tx).to(input.dtype).float()  # (n, h, wg, w)
+
+    y0 = torch.floor(y)
+    ty = y - y0
+    y0i = y0.long()
+    rows = torch.arange(h, device=input.device)[None, :, None]
+    slot0 = y0i - rows + radius  # window slot of the floor corner
+    if beyond == "clamp":
+        slot0 = slot0.clamp(0, 2 * radius)
+    w0 = (1.0 - ty) * ((y0i >= 0) & (y0i <= h - 1)).float()
+    w1 = ty * ((y0i + 1 >= 0) & (y0i + 1 <= h - 1)).float()
+
+    padded = F.pad(input.permute(0, 2, 3, 1), (0, 0, 0, 0, radius, radius + 1)).float()
+    out = torch.zeros((n, h, wg, c), dtype=torch.float32, device=input.device)
+    zero = torch.zeros((), dtype=torch.float32, device=input.device)
+    for d in range(2 * radius + 2):
+        weight = torch.where(slot0 == d, w0, zero) + torch.where(slot0 + 1 == d, w1, zero)
+        contrib = torch.einsum("nhjx,nhxc->nhjc", wx, padded[:, d : d + h])
+        out = out + _RowWeight.apply(weight[..., None], contrib, input.dtype)
+    return out.to(input.dtype).permute(0, 3, 1, 2)
+
+
+def warp_bilinear_matmul(
+    input: torch.Tensor,  # (n, c, h, w)
+    grid: torch.Tensor,  # (n, h, wg, 2)
+    radius: int = 16,
+) -> torch.Tensor:  # (n, c, h, wg)
+    """The gather-free warp of `flowmap_tpu/ops/warp.py:warp_bilinear_matmul`:
+    vertical displacements beyond `radius` clamp to the window's edge."""
+    return windowed_matmul_warp(input, grid, radius, "clamp")

@@ -44,6 +44,40 @@ class Flows:
 
 
 @dataclass
+class Tracks:
+    """Point tracks for one temporal segment: every `interval` frames a
+    (grid x grid) query grid tracked over a +-radius window."""
+
+    xy: torch.Tensor  # (b, f, p, 2) normalized [0, 1] coordinates
+    visibility: torch.Tensor  # (b, f, p) bool
+    start_frame: int = 0
+
+
+@dataclass
+class TracksPacked:
+    """All track segments stacked with a uniform window length.
+
+    The segments' frame windows are ragged (boundary windows are shorter);
+    packing pads each to a common length `l` with visibility False, which
+    leaves the loss unchanged, and records each segment's start frame.
+    """
+
+    xy: torch.Tensor  # (b, s, l, p, 2)
+    visibility: torch.Tensor  # (b, s, l, p) bool
+    starts: torch.Tensor  # (s,) int; starts[i] + l <= num_frames
+    _frame_index: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
+
+    def frame_index(self) -> torch.Tensor:
+        """(s, l) video frame of every window slot. The tracks are constant
+        over a scene, so the index is built once and kept."""
+        if self._frame_index is None:
+            length = self.xy.shape[2]
+            offsets = torch.arange(length, device=self.starts.device)
+            self._frame_index = self.starts.long()[:, None] + offsets
+        return self._frame_index
+
+
+@dataclass
 class BackboneOutput:
     depths: torch.Tensor  # (b, f, h, w)
     weights: torch.Tensor  # (b, p, h, w) backward correspondence weights

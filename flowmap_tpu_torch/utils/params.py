@@ -1,4 +1,4 @@
-"""Carry the JAX package's parameter tree into the port's modules.
+"""Carry the JAX package's parameters and data into the port's modules.
 
 `from_jax_params(tree)` takes `TrainState.params` of `flowmap_tpu` as nested
 dicts/lists of NumPy arrays and returns a state dict for `FlowMapModel`.
@@ -12,13 +12,17 @@ Module names mirror the JAX keys, so the mapping is mechanical:
   keep their layout.
 
 `from_jax_params` applies to any tree shaped like the parameters, such as
-their gradients.
+their gradients. `tracks_from_numpy` and `tracks_packed_from_numpy` build the
+port's track types from the arrays of the JAX package's (or of any other
+source), so that a test can hand the same tracks to both.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..types import Tracks, TracksPacked
 
 
 def _flatten(tree, prefix=()):
@@ -55,3 +59,21 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
     """State dict for `FlowMapModel.load_state_dict` from a JAX param tree."""
     return {torch_name(path): jax_leaf_to_torch(path, leaf) for path, leaf in _flatten(tree)}
 
+
+
+def tracks_from_numpy(xy, visibility, start_frame: int, device="cpu") -> Tracks:
+    """One ragged segment from (b, f, p, 2) and (b, f, p) arrays."""
+    return Tracks(
+        xy=torch.as_tensor(np.asarray(xy, dtype=np.float32)).to(device),
+        visibility=torch.as_tensor(np.asarray(visibility, dtype=bool)).to(device),
+        start_frame=int(start_frame),
+    )
+
+
+def tracks_packed_from_numpy(xy, visibility, starts, device="cpu") -> TracksPacked:
+    """Packed segments from (b, s, l, p, 2), (b, s, l, p) and (s,) arrays."""
+    return TracksPacked(
+        xy=torch.as_tensor(np.asarray(xy, dtype=np.float32)).to(device),
+        visibility=torch.as_tensor(np.asarray(visibility, dtype=bool)).to(device),
+        starts=torch.as_tensor(np.asarray(starts, dtype=np.int32)).to(device),
+    )

@@ -1,10 +1,12 @@
 """Synthetic rigid scene for tests and chip runs (NumPy math, torch outputs).
 
-Counterpart of `flowmap_tpu/utils/synthetic.py:make_scene`, with its own
-copy of the NumPy helpers: a piecewise-planar world, a smooth camera arc and
+Counterpart of `flowmap_tpu/utils/synthetic.py` (`make_scene`,
+`make_track_segments`, `make_tracks`), with its own copy of the NumPy helpers: a piecewise-planar world, a smooth camera arc and
 ground-truth intrinsics; per-frame depth from closed-form ray/plane
 intersection, and the exact pose/depth-induced flow as the observed flow.
-The scene is built on the host and returned as tensors on `device`.
+The scene is built on the host and returned as tensors on `device`. The
+exact point tracks come from the same geometry, in the reference's segment
+structure, on the device of the batch they are made from.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..types import Batch, Flows
+from ..types import Batch, Flows, Tracks
 from .device import resolve_device
 
 
@@ -156,3 +158,98 @@ def make_scene(
         forward_mask=a["forward_mask"], backward_mask=a["backward_mask"],
     )
     return batch, flows, a["depths"]
+
+
+def _np_grid_sample_points(
+    images: np.ndarray,  # (n, c, h, w)
+    xy: np.ndarray,  # (n, p, 2) normalized [0, 1]
+) -> np.ndarray:
+    """Border-padded bilinear sampling (NumPy mirror of grid_sample_points)."""
+    n, c, h, w = images.shape
+    x = xy[..., 0] * w - 0.5
+    y = xy[..., 1] * h - 0.5
+    x0 = np.floor(x).astype(int)
+    y0 = np.floor(y).astype(int)
+    tx = (x - x0)[:, None]
+    ty = (y - y0)[:, None]
+    x0c = np.clip(x0, 0, w - 1)
+    x1c = np.clip(x0 + 1, 0, w - 1)
+    y0c = np.clip(y0, 0, h - 1)
+    y1c = np.clip(y0 + 1, 0, h - 1)
+    flat = images.reshape(n, c, h * w)
+
+    def gather(yi, xi):
+        return np.take_along_axis(flat, (yi * w + xi)[:, None, :].repeat(c, 1), axis=2)
+
+    top = gather(y0c, x0c) * (1 - tx) + gather(y0c, x1c) * tx
+    bot = gather(y1c, x0c) * (1 - tx) + gather(y1c, x1c) * tx
+    return top * (1 - ty) + bot * ty  # (n, c, p)
+
+
+def _track_geometry(batch: Batch, depths) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    poses = batch.extrinsics[0].detach().cpu().numpy()
+    k = batch.intrinsics[0, 0].detach().cpu().numpy()
+    d = torch.as_tensor(depths)[0].detach().cpu().numpy()
+    _, h, w = d.shape
+    surfaces = _np_unproject(_np_grid(h, w), d, k)  # (f, h, w, 3)
+    return poses, k, surfaces
+
+
+def _exact_tracks(
+    poses: np.ndarray,  # (f, 4, 4) segment poses
+    k: np.ndarray,
+    surfaces: np.ndarray,  # (f, h, w, 3) segment surfaces
+    query: np.ndarray,  # (p, 2) on the query frame
+    query_frame: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Project the query frame's 3D points into every segment frame."""
+    xyz = _np_grid_sample_points(
+        surfaces[query_frame].transpose(2, 0, 1)[None], query[None]
+    )[0].T  # (p, 3)
+    rel = np.einsum("fij,jk->fik", _np_rigid_inverse(poses), poses[query_frame])
+    xy_t = _np_reproject(xyz[None], rel[:, None], k)  # (fs, p, 2)
+    visibility = np.all(xy_t >= 0, -1) & np.all(xy_t < 1, -1)
+    return xy_t.astype(np.float32), visibility
+
+
+def _as_tracks(xy_t: np.ndarray, visibility: np.ndarray, start: int, device) -> Tracks:
+    return Tracks(
+        xy=torch.as_tensor(xy_t[None]).to(device),
+        visibility=torch.as_tensor(visibility[None]).to(device),
+        start_frame=start,
+    )
+
+
+def make_track_segments(
+    batch: Batch,
+    depths,
+    interval: int = 5,
+    radius: int = 20,
+    grid_size: int = 35,
+) -> list[Tracks]:
+    """Exact tracks in the reference's segment structure: every `interval`
+    frames, a (grid_size x grid_size) query grid tracked over a +-`radius`
+    window (reference: `flowmap/tracking/__init__.py:49-70`)."""
+    poses, k, surfaces = _track_geometry(batch, depths)
+    f = poses.shape[0]
+    g = (np.arange(grid_size) + 0.5) / grid_size
+    query = np.stack(np.meshgrid(g, g, indexing="xy"), -1).reshape(-1, 2).astype(np.float32)
+
+    segments = []
+    for center in range(0, f, interval):
+        start = max(center - radius, 0)
+        stop = min(center + radius + 1, f)
+        xy_t, visibility = _exact_tracks(
+            poses[start:stop], k, surfaces[start:stop], query, center - start
+        )
+        segments.append(_as_tracks(xy_t, visibility, start, batch.videos.device))
+    return segments
+
+
+def make_tracks(batch: Batch, depths, num_points: int = 64, seed: int = 0) -> list[Tracks]:
+    """Exact point tracks from the GT geometry (one whole-video segment)."""
+    rng = np.random.default_rng(seed)
+    poses, k, surfaces = _track_geometry(batch, depths)
+    query = rng.uniform(0.1, 0.9, size=(num_points, 2)).astype(np.float32)
+    xy_t, visibility = _exact_tracks(poses, k, surfaces, query, 0)
+    return [_as_tracks(xy_t, visibility, 0, batch.videos.device)]

@@ -3,8 +3,8 @@
 
 Runs the port's flagship configuration (`flowmap_tpu_torch/training/
 flagship.py`: 150 frames at 160x224, MiDaS-small bf16 with folded BN,
-softmin intrinsics, Procrustes extrinsics, flow loss),
-then traces a few steps with `torch.profiler` and prints:
+softmin intrinsics, Procrustes extrinsics, flow and tracking losses with the
+tracking loss enabled from step 0), then traces a few steps with `torch.profiler` and prints:
 
 - the card's name and power limit, steps/s of the traced window;
 - device time by kernel (top N by total CUDA time, summed over the steps);
@@ -32,7 +32,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 CATEGORIES = [
     ("repo kernels", ("flow_loss_kernel", "shift_warp_", "conv3x3_kernel",
-                      "conv3x3_mma_kernel", "head_tail_", "wgrad_kernel", "wgrad_mma_kernel")),
+                      "conv3x3_mma_kernel", "head_tail_", "wgrad_kernel", "wgrad_mma_kernel",
+                      "track_sample_", "track_pair_kernel", "warp_features_")),
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "xmma", "sm90_", "dgrad",
                              "wgrad", "cutlass")),
     ("GEMM", ("gemm", "Gemm", "matmul")),
@@ -70,7 +71,6 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip())
 
-    from flowmap_tpu_torch.loss.loss import LossFlowCfg
     from flowmap_tpu_torch.ops.kernels import build
     from flowmap_tpu_torch.training import flagship
     from flowmap_tpu_torch.training.overfit import (
@@ -80,18 +80,19 @@ def main() -> int:
     )
 
     build.build_all()
-    batch, flows, _ = flagship.scene("cuda")
+    batch, flows, depths = flagship.scene("cuda")
+    tracks = flagship.tracks(batch, depths)
     cfg = flagship.model_cfg(flows)
     state = init_train_state(cfg, OverfitTrainerCfg(), flagship.NUM_FRAMES, flagship.IMAGE_SHAPE)
-    step = make_train_step(cfg, [LossFlowCfg()])
+    step = make_train_step(cfg, flagship.loss_cfgs(tracking_after=0))
     for _ in range(3):
-        step(state, batch, flows)
+        step(state, batch, flows, tracks)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(state, batch, flows)
+            step(state, batch, flows, tracks)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(f"traced {args.steps} steps: {args.steps / wall:.4f} steps/s, "

@@ -129,3 +129,91 @@ def test_head_kernel_bf16_matches_plain_on_ragged_tiles(cuda):
     for k_out, p_out, r_out in zip((got, *grads[0]), (plain, *grads[1]), (ref, *grads[2])):
         assert rel_l2(k_out, p_out) <= 1e-1
         assert rel_l2(k_out, r_out) <= 1.25 * rel_l2(p_out, r_out) + 1e-3
+
+
+def _track_scene(device, f=9, h=33, w=45, s=4, l=5, p=37, seed=5):
+    """Ragged small shapes: p not a multiple of 32, odd h and w, points
+    outside the frame, invisible points and an all-invisible padding frame."""
+    from flowmap_tpu_torch.types import TracksPacked
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    surfaces = rnd(1, f, h, w, 3)
+    surfaces[..., 2] += 4.0
+    extrinsics = torch.eye(4, device=device).repeat(1, f, 1, 1)
+    skew = 0.1 * rnd(f, 3)
+    zero = torch.zeros(f, device=device)
+    generators = torch.stack([
+        torch.stack([zero, -skew[:, 2], skew[:, 1]], -1),
+        torch.stack([skew[:, 2], zero, -skew[:, 0]], -1),
+        torch.stack([-skew[:, 1], skew[:, 0], zero], -1),
+    ], 1)
+    extrinsics[0, :, :3, :3] = torch.linalg.matrix_exp(generators)
+    extrinsics[0, :, :3, 3] = 0.3 * rnd(f, 3)
+    intrinsics = torch.zeros(1, f, 3, 3, device=device)
+    intrinsics[0, :, 0, 0] = 1.2 + 0.1 * rnd(f)
+    intrinsics[0, :, 1, 1] = 1.3 + 0.1 * rnd(f)
+    intrinsics[0, :, :2, 2] = 0.5
+    intrinsics[0, :, 2, 2] = 1.0
+    xy = torch.rand((1, s, l, p, 2), generator=gen, device=device) * 1.1 - 0.05
+    vis = torch.rand((1, s, l, p), generator=gen, device=device) > 0.2
+    xy[0, 1, 0] = 0.5
+    vis[0, 1, 0] = False
+    starts = torch.linspace(0, f - l, s).to(torch.int32).to(device)
+    return [surfaces, extrinsics, intrinsics], TracksPacked(xy=xy, visibility=vis, starts=starts)
+
+
+@pytest.mark.parametrize("p", [37, 600])
+def test_track_loss_kernel_matches_plain(cuda, p):
+    """Sums within 2e-5 rel (valid counts equal); gradients to surfaces,
+    extrinsics and intrinsics within 2e-4 of each one's max (f32 sums in
+    another order; the scatter's atomics). 600 points span two of the pair
+    kernels' 512-point tiles, the second one ragged."""
+    from flowmap_tpu_torch.loss.mapping import MappingCfg
+    from flowmap_tpu_torch.ops.kernels.track_loss import track_loss, track_loss_plain
+
+    inputs, tracks = _track_scene(cuda, p=p)
+    inputs = [t.requires_grad_(True) for t in inputs]
+    got, got_valid = track_loss(*inputs, tracks, (33, 45), 0.01)
+    want, want_valid = track_loss_plain(*inputs, tracks, (33, 45), MappingCfg("huber", 0.01))
+    assert float(got_valid) == float(want_valid) > 0
+    np.testing.assert_allclose(float(got.detach()), float(want.detach()), rtol=2e-5)
+    for a, b in zip(torch.autograd.grad(got, inputs), torch.autograd.grad(want, inputs)):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 2e-4 * float(b.abs().max())
+
+
+def _warp_scene(device, dtype, n=3, c=16, h=11, w=19, wg=19, max_dy=1.5, seed=6):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    feats = torch.randn((n, c, h, w), generator=gen, device=device).to(dtype).requires_grad_(True)
+    base_y = (torch.arange(h, device=device) + 0.5) / h
+    base_x = (torch.arange(wg, device=device) + 0.5) / wg
+    gy, gx = torch.meshgrid(base_y, base_x, indexing="ij")
+    flow = (torch.rand((n, h, wg, 2), generator=gen, device=device) - 0.5) * 2
+    flow = flow * torch.tensor([6.0 / w, max_dy / h], device=device)
+    grid = ((torch.stack([gx, gy], -1) + flow) * 2 - 1).contiguous()
+    g = torch.randn((n, c, h, wg), generator=gen, device=device).to(dtype)
+    return feats, grid, g
+
+
+@pytest.mark.parametrize("max_dy,wg", [(1.5, 19), (5.0, 19), (1.5, 13)])
+def test_warp_features_kernel_matches_plain(cuda, max_dy, wg):
+    """Radius 2, displacements inside it and beyond it (where out-of-window
+    corners are dropped), and a grid narrower than the features. f32: 1e-5
+    of max, values and feature gradient. bf16: the plain version rounds where
+    the kernel does, so all that differs is the f32 summation order under the
+    final rounding: one bf16 ulp."""
+    from flowmap_tpu_torch.ops.kernels.warp_features import warp_features, warp_features_plain
+
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)):
+        feats, grid, g = _warp_scene(cuda, dtype, wg=wg, max_dy=max_dy)
+        got, want = warp_features(feats, grid, 2), warp_features_plain(feats, grid, 2)
+        assert got.shape == want.shape and got.dtype == dtype
+        assert float((got.float() - want.float()).abs().max()) <= tol * float(want.abs().max())
+        (d_got,) = torch.autograd.grad(got, feats, g)
+        (d_want,) = torch.autograd.grad(want, feats, g)
+        assert d_got.dtype == dtype
+        assert float((d_got.float() - d_want.float()).abs().max()) <= tol * float(d_want.abs().max())

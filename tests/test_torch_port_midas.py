@@ -62,26 +62,31 @@ def test_midas_small_original_mapping_relu():
     assert rel(y_t, y_j) < 2e-4
 
 
-def test_backbone_midas_native_weights():
-    """Depths and the native-resolution correspondence weights (shift warp,
-    split MLP, sigmoid and clip, upsample) within 2e-4 of their max."""
-    # The first three frames of a 20-frame scene: small inter-frame flow.
+def _backbone_outputs(warp_impl="fused", half_radii=None):
+    """Both backbones on the first three frames of a 20-frame scene (small
+    inter-frame flow), the radii autosized or set to `half_radii`."""
+    import dataclasses
+
     batch_j, flows_j, _ = j_make_scene(JSceneCfg(num_frames=20, image_shape=(64, 64)))
     batch_j = batch_j.replace(videos=batch_j.videos[:, :3], indices=batch_j.indices[:, :3])
     flows_j = jax.tree_util.tree_map(lambda a: a[:, :2], flows_j)
-    j_cfg = JCfg(pretrained=False, mapping="exp", bn="folded", compute_dtype="float32")
+    j_cfg = JCfg(pretrained=False, mapping="exp", bn="folded", compute_dtype="float32",
+                 warp_impl=warp_impl)
     j_model_cfg = j_autosize(
         ModelCfg(backbone=j_cfg, intrinsics=IntrinsicsSoftminCfg(),
                  extrinsics=ExtrinsicsProcrustesCfg()),
         flows_j, 64,
     )
     j_cfg = j_model_cfg.backbone
+    if half_radii is not None:
+        j_cfg = dataclasses.replace(
+            j_cfg, warp_radius_half=half_radii[0], warp_radius_half_x=half_radii[1])
     params = init_midas(j_cfg, 3, (64, 64), jax.random.PRNGKey(2))
     with jax.default_matmul_precision("highest"):
         out_j = apply_midas(j_cfg, params, batch_j, flows_j)
 
     t_cfg = BackboneMidasCfg(
-        mapping="exp", bn="folded", compute_dtype="float32",
+        mapping="exp", bn="folded", compute_dtype="float32", warp_impl=warp_impl,
         warp_radius=j_cfg.warp_radius, warp_radius_x=j_cfg.warp_radius_x,
         warp_radius_half=j_cfg.warp_radius_half,
         warp_radius_half_x=j_cfg.warp_radius_half_x,
@@ -94,19 +99,51 @@ def test_backbone_midas_native_weights():
         flows_j.forward, flows_j.backward, flows_j.forward_mask, flows_j.backward_mask)))
     with torch.no_grad():
         out_t = backbone(batch, flows)
+    return out_t, out_j
+
+
+def test_backbone_midas_native_weights():
+    """Depths and the native-resolution correspondence weights (shift warp,
+    split MLP, sigmoid and clip, upsample) within 2e-4 of their max."""
+    out_t, out_j = _backbone_outputs()
+    assert rel(out_t.depths, out_j.depths) < 2e-4
+    assert rel(out_t.weights, out_j.weights) < 2e-4
+
+
+@pytest.mark.parametrize(
+    "warp_impl,half_radii",
+    [("fused", (8, 8)), ("pallas", None), ("matmul", (8, 8)), ("gather", None)],
+)
+def test_backbone_midas_warp_branches(warp_impl, half_radii, monkeypatch):
+    """The weight path off the shift warp: a tap window above 256 (half radii
+    8 x 8) sends "fused" to the bounded-radius warp and "matmul" to the
+    windowed matmul; "pallas" takes the bounded-radius warp at any window and
+    "gather" the unbounded sample. Weights within 2e-4 of their max, and the
+    shift warp is not called."""
+    from flowmap_tpu_torch.model.backbone import backbone_midas as module
+
+    def no_shift_warp(*args, **kwargs):
+        raise AssertionError("the shift warp must not run on this branch")
+
+    monkeypatch.setattr(module, "warp_shifts", no_shift_warp)
+    out_t, out_j = _backbone_outputs(warp_impl, half_radii)
     assert rel(out_t.depths, out_j.depths) < 2e-4
     assert rel(out_t.weights, out_j.weights) < 2e-4
 
 
 def test_unported_branches_raise():
-    backbone = BackboneMidas(BackboneMidasCfg(
-        compute_dtype="float32", weights_resolution="full"))
     batch = Batch(videos=torch.zeros(1, 2, 3, 32, 32), indices=torch.arange(2)[None])
     flows = Flows(torch.zeros(1, 1, 32, 32, 2), torch.zeros(1, 1, 32, 32, 2),
                   torch.ones(1, 1, 32, 32), torch.ones(1, 1, 32, 32))
+    for unported in (dict(weights_resolution="full"), dict(fused_weight_mlp=True)):
+        backbone = BackboneMidas(BackboneMidasCfg(compute_dtype="float32", **unported))
+        with pytest.raises(NotImplementedError):
+            backbone(batch, flows)
     with pytest.raises(NotImplementedError):
-        backbone(batch, flows)
+        BackboneMidas(BackboneMidasCfg(model="DPT_Large"))
+    # A tap window above 256 is ported now: it runs the bounded-radius warp.
     wide = BackboneMidas(BackboneMidasCfg(compute_dtype="float32", warp_radius_half=8,
                                           warp_radius_half_x=8))
-    with pytest.raises(NotImplementedError):
-        wide(batch, flows)
+    with torch.no_grad():
+        out = wide(batch, flows)
+    assert out.weights.shape == (1, 1, 32, 32) and torch.isfinite(out.weights).all()

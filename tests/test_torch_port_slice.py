@@ -8,10 +8,11 @@ JAX sweep needs at most h*w). The JAX `init_train_state` parameters are carried
 into the port, and the JAX draw of the softmin pixel subset,
 `permutation(split(fold_in(PRNGKey(0), step))[0], h*w)[:k]`, is injected
 into the port's step. Compared: the loss, every gradient leaf, the
-parameters after Adam, and a 5-step loss trajectory.
+parameters after Adam, and a 5-step loss trajectory; with the flow loss
+alone, with the flow and tracking losses (packed exact tracks, every 2
+frames a 6x6 grid over +-3 frames, the tracking loss enabled from step 0),
+and with both losses on the bounded-radius warp (`warp_impl="pallas"`).
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from flowmap_tpu.loss.loss import LossFlowCfg as JLossFlowCfg
+from flowmap_tpu.loss.loss import LossTrackingCfg as JLossTrackingCfg
 from flowmap_tpu.loss.loss import compute_losses as j_compute_losses
 from flowmap_tpu.model import BackboneMidasCfg as JBackboneCfg
 from flowmap_tpu.model import ExtrinsicsProcrustesCfg as JExtrinsicsCfg
@@ -33,7 +35,9 @@ from flowmap_tpu.training.overfit import _autosize_warp_radius as j_autosize
 from flowmap_tpu.training.overfit import init_train_state as j_init_train_state
 from flowmap_tpu.training.overfit import make_train_step as j_make_train_step
 from flowmap_tpu.utils.synthetic import SyntheticSceneCfg as JSceneCfg
+from flowmap_tpu.tracking.tracking import pack_tracks as j_pack_tracks
 from flowmap_tpu.utils.synthetic import make_scene as j_make_scene
+from flowmap_tpu.utils.synthetic import make_track_segments as j_make_track_segments
 from flowmap_tpu_torch.loss.loss import LossFlowCfg, LossTrackingCfg, compute_losses
 from flowmap_tpu_torch.model import (
     BackboneMidasCfg,
@@ -49,8 +53,9 @@ from flowmap_tpu_torch.training.overfit import (
     init_train_state,
     make_train_step,
 )
+from flowmap_tpu_torch.tracking.tracking import pack_tracks
 from flowmap_tpu_torch.utils.params import from_jax_params
-from flowmap_tpu_torch.utils.synthetic import SyntheticSceneCfg, make_scene
+from flowmap_tpu_torch.utils.synthetic import SyntheticSceneCfg, make_scene, make_track_segments
 
 torch.set_num_threads(1)
 
@@ -75,14 +80,20 @@ def _rel_l2(got: dict, want: dict) -> tuple[float, dict]:
     return (num / sum(n * n for n in norms.values())) ** 0.5, per_leaf
 
 
-@pytest.fixture(scope="module")
-def runs():
+TRACKS = dict(interval=2, radius=3, grid_size=6)
+
+
+def _runs(with_tracking: bool, warp_impl: str = "fused"):
     """Run both packages for STEPS steps from the same parameters."""
-    j_batch, j_flows, _ = j_make_scene(JSceneCfg(num_frames=F, image_shape=(H, W)))
+    j_batch, j_flows, j_depths = j_make_scene(JSceneCfg(num_frames=F, image_shape=(H, W)))
+    j_losses, j_tracks = [JLossFlowCfg()], None
+    if with_tracking:
+        j_losses.append(JLossTrackingCfg(enable_after=0))
+        j_tracks = j_pack_tracks(j_make_track_segments(j_batch, j_depths, **TRACKS), F)
     j_cfg = j_autosize(
         JModelCfg(
             backbone=JBackboneCfg(pretrained=False, mapping="exp", bn="folded",
-                                  compute_dtype="float32"),
+                                  compute_dtype="float32", warp_impl=warp_impl),
             intrinsics=JIntrinsicsCfg(num_procrustes_points=POINTS,
                                       regression=JRegressionCfg(after_step=1000, window=100)),
             extrinsics=JExtrinsicsCfg(num_points=1000),
@@ -91,12 +102,12 @@ def runs():
     )
     j_state, optimizer = j_init_train_state(j_cfg, JTrainerCfg(lr=LR), F, (H, W))
     base_key = jax.random.PRNGKey(0)
-    j_step = jax.jit(j_make_train_step(j_cfg, [JLossFlowCfg()], optimizer, base_key))
+    j_step = jax.jit(j_make_train_step(j_cfg, j_losses, optimizer, base_key))
 
     def j_loss(params, state):
         output, _ = j_forward(j_cfg, params, state.model_state, j_batch, j_flows,
                               state.step, jax.random.fold_in(base_key, state.step))
-        return j_compute_losses([JLossFlowCfg()], j_flows, None, output, state.step, (H, W))[0]
+        return j_compute_losses(j_losses, j_flows, j_tracks, output, state.step, (H, W))[0]
 
     j_grad_fn = jax.jit(jax.grad(j_loss))
     j_grads = j_grad_fn(j_state.params, j_state)
@@ -110,11 +121,15 @@ def runs():
     ]))
     j_grads_pert = j_grad_fn(j_state_pert.params, j_state_pert)
 
-    batch, flows, _ = make_scene(SyntheticSceneCfg(num_frames=F, image_shape=(H, W)), "cpu")
+    batch, flows, depths = make_scene(SyntheticSceneCfg(num_frames=F, image_shape=(H, W)), "cpu")
+    losses, tracks = [LossFlowCfg()], None
+    if with_tracking:
+        losses.append(LossTrackingCfg(enable_after=0))
+        tracks = pack_tracks(make_track_segments(batch, depths, **TRACKS), F)
     cfg = _autosize_warp_radius(
         ModelCfg(
             backbone=BackboneMidasCfg(mapping="exp", bn="folded",
-                                      compute_dtype="float32"),
+                                      compute_dtype="float32", warp_impl=warp_impl),
             intrinsics=IntrinsicsSoftminCfg(num_procrustes_points=POINTS,
                                             regression=RegressionCfg(after_step=1000, window=100)),
             extrinsics=ExtrinsicsProcrustesCfg(num_points=1000),
@@ -123,17 +138,20 @@ def runs():
     )
     state = init_train_state(cfg, OverfitTrainerCfg(lr=LR), F, (H, W), device="cpu")
     state.model.load_state_dict(from_jax_params(j_state.params), strict=True)
-    step = make_train_step(cfg, [LossFlowCfg()])
+    step = make_train_step(cfg, losses)
     k = cfg.intrinsics.num_procrustes_points
 
     out = {"j_cfg": j_cfg, "cfg": cfg, "scenes": ((j_batch, j_flows), (batch, flows)),
-           "j_loss": [], "t_loss": [], "j_loss_pert": [],
+           "j_loss": [], "t_loss": [], "j_loss_pert": [], "t_tracking": [], "j_tracking": [],
            "j_grads": from_jax_params(j_grads), "j_grads_pert": from_jax_params(j_grads_pert)}
     for i in range(STEPS):
         idx = torch.as_tensor(_intrinsics_indices(i, k), dtype=torch.long)
-        metrics = step(state, batch, flows, intrinsics_indices=idx)
-        j_state, j_metrics = j_step(j_state, j_batch, j_flows, None)
-        j_state_pert, j_metrics_pert = j_step(j_state_pert, j_batch, j_flows, None)
+        metrics = step(state, batch, flows, tracks, intrinsics_indices=idx)
+        j_state, j_metrics = j_step(j_state, j_batch, j_flows, j_tracks)
+        j_state_pert, j_metrics_pert = j_step(j_state_pert, j_batch, j_flows, j_tracks)
+        if with_tracking:
+            out["t_tracking"].append(float(metrics["loss/tracking"]))
+            out["j_tracking"].append(float(j_metrics["loss/tracking"]))
         out["t_loss"].append(float(metrics["loss/total"]))
         out["j_loss"].append(float(j_metrics["loss/total"]))
         out["j_loss_pert"].append(float(j_metrics_pert["loss/total"]))
@@ -142,6 +160,19 @@ def runs():
             out["t_params"] = {n: p.detach().clone() for n, p in state.model.named_parameters()}
             out["j_params"] = from_jax_params(j_state.params)
     return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """The flow loss alone, on the shift warp."""
+    return _runs(with_tracking=False)
+
+
+@pytest.fixture(scope="module", params=["fused", "pallas"])
+def runs_tracking(request):
+    """The flow and tracking losses, on the shift warp ("fused") and on the
+    bounded-radius warp ("pallas")."""
+    return _runs(with_tracking=True, warp_impl=request.param)
 
 
 def test_scenes_match(runs):
@@ -156,13 +187,7 @@ def test_scenes_match(runs):
         j_bb.warp_radius, j_bb.warp_radius_x, j_bb.warp_radius_half, j_bb.warp_radius_half_x)
 
 
-def test_one_step_loss_and_gradients(runs):
-    """Loss rtol 1e-4. Gradients: at random initialisation the step is
-    ill-conditioned (near-constant depth makes Horn's eigenproblem nearly
-    degenerate), and the JAX package's own gradient moves by ~1.5% in L2
-    when every parameter is perturbed by 1e-6 relative. The port's gradient
-    must be at most twice as far from the reference as that, globally and
-    per leaf (relative L2, per-leaf floor 1e-2 of the largest leaf norm)."""
+def _check_one_step_loss_and_gradients(runs):
     np.testing.assert_allclose(runs["t_loss"][0], runs["j_loss"][0], rtol=1e-4)
     assert runs["t_grads"].keys() == runs["j_grads"].keys()
     port, port_leaf = _rel_l2(runs["t_grads"], runs["j_grads"])
@@ -172,11 +197,26 @@ def test_one_step_loss_and_gradients(runs):
         assert port_leaf[k] <= 2 * max(ref_leaf[k], ref) + 1e-4, (k, port_leaf[k], ref_leaf[k])
 
 
-def test_one_step_params_after_adam(runs):
-    """Adam's first update is lr * g / (|g| + eps), about lr * sign(g): where
-    the gradients disagree in sign (within the conditioning above) an
-    element may differ by up to 2 lr, never more; at most 1% of all
-    elements differ by more than 1e-6."""
+def test_one_step_loss_and_gradients(runs):
+    """Loss rtol 1e-4. Gradients: at random initialisation the step is
+    ill-conditioned (near-constant depth makes Horn's eigenproblem nearly
+    degenerate), and the JAX package's own gradient moves by ~1.5% in L2
+    when every parameter is perturbed by 1e-6 relative. The port's gradient
+    must be at most twice as far from the reference as that, globally and
+    per leaf (relative L2, per-leaf floor 1e-2 of the largest leaf norm)."""
+    _check_one_step_loss_and_gradients(runs)
+
+
+def test_one_step_loss_and_gradients_with_tracking(runs_tracking):
+    """The same rule with both losses; the tracking term itself, weighted and
+    enabled from step 0, agrees to 1e-4 and is not zero."""
+    _check_one_step_loss_and_gradients(runs_tracking)
+    assert runs_tracking["j_tracking"][0] > 0
+    np.testing.assert_allclose(
+        runs_tracking["t_tracking"][0], runs_tracking["j_tracking"][0], rtol=1e-4)
+
+
+def _check_params_after_adam(runs):
     differing = total = 0
     for name, want in runs["j_params"].items():
         diff = (runs["t_params"][name] - want).abs()
@@ -186,14 +226,42 @@ def test_one_step_params_after_adam(runs):
     assert differing / total < 1e-2, differing / total
 
 
-def test_loss_trajectory(runs):
-    """Five steps: the port's losses stay as close to the reference's as
-    the reference's own run from 1e-6-perturbed parameters (within 3x, plus
-    1e-4 relative)."""
+def test_one_step_params_after_adam(runs):
+    """Adam's first update is lr * g / (|g| + eps), about lr * sign(g): where
+    the gradients disagree in sign (within the conditioning above) an
+    element may differ by up to 2 lr, never more; at most 1% of all
+    elements differ by more than 1e-6."""
+    _check_params_after_adam(runs)
+
+
+def test_one_step_params_after_adam_with_tracking(runs_tracking):
+    _check_params_after_adam(runs_tracking)
+
+
+def _check_loss_trajectory(runs):
     t, j, jp = (np.asarray(runs[k]) for k in ("t_loss", "j_loss", "j_loss_pert"))
     assert np.all(np.isfinite(t))
     assert np.max(np.abs(t - j)) <= 3 * np.max(np.abs(jp - j)) + 1e-4 * np.max(np.abs(j))
     assert t[-1] < t[0]
+
+
+def test_loss_trajectory(runs):
+    """Five steps: the port's losses stay as close to the reference's as
+    the reference's own run from 1e-6-perturbed parameters (within 3x, plus
+    1e-4 relative)."""
+    _check_loss_trajectory(runs)
+
+
+def test_loss_trajectory_with_tracking(runs_tracking):
+    _check_loss_trajectory(runs_tracking)
+
+
+def test_warp_branch_of_the_tracking_runs(runs_tracking, request):
+    """"pallas" leaves the shift warp; both packages size the same radii."""
+    j_bb, bb = runs_tracking["j_cfg"].backbone, runs_tracking["cfg"].backbone
+    assert bb.warp_impl == j_bb.warp_impl == request.node.callspec.params["runs_tracking"]
+    assert (bb.warp_radius_half, bb.warp_radius_half_x) == (
+        j_bb.warp_radius_half, j_bb.warp_radius_half_x)
 
 
 def test_softmin_sweep_values_and_gradients():
@@ -225,10 +293,32 @@ def test_softmin_sweep_values_and_gradients():
         assert float(np.abs(got.numpy() - want).max()) <= 1e-3 * float(np.abs(want).max())
 
 
-def test_tracking_loss_raises_until_next_slice():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        compute_losses([LossTrackingCfg()], None, None, dataclasses.make_dataclass(
-            "Out", ["surfaces"])(torch.zeros(1)), 0, (4, 4))
+def test_train_step_takes_a_ragged_track_list():
+    """`make_train_step` with the tracking loss and a ragged segment list:
+    the same first loss as with the packed tracks (2e-5 rel), and no tracks
+    at all is an error."""
+    batch, flows, depths = make_scene(SyntheticSceneCfg(num_frames=4, image_shape=(64, 64)), "cpu")
+    cfg = _autosize_warp_radius(
+        ModelCfg(
+            backbone=BackboneMidasCfg(mapping="exp", bn="folded", compute_dtype="float32"),
+            intrinsics=IntrinsicsSoftminCfg(num_procrustes_points=512),
+            extrinsics=ExtrinsicsProcrustesCfg(num_points=200),
+        ),
+        flows, 64,
+    )
+    segments = make_track_segments(batch, depths, interval=2, radius=1, grid_size=5)
+    losses = [LossFlowCfg(), LossTrackingCfg(enable_after=0)]
+    idx = torch.arange(0, 64 * 64, 5)
+    values = []
+    for tracks in (segments, pack_tracks(segments, 4)):
+        state = init_train_state(cfg, OverfitTrainerCfg(lr=LR), 4, (64, 64), device="cpu")
+        metrics = make_train_step(cfg, losses)(state, batch, flows, tracks, intrinsics_indices=idx)
+        assert float(metrics["loss/tracking"]) > 0
+        values.append(float(metrics["loss/total"]))
+    np.testing.assert_allclose(values[0], values[1], rtol=2e-5)
+    state = init_train_state(cfg, OverfitTrainerCfg(lr=LR), 4, (64, 64), device="cpu")
+    with pytest.raises(ValueError, match="requires tracks"):
+        make_train_step(cfg, losses)(state, batch, flows, intrinsics_indices=idx)
 
 
 @pytest.mark.parametrize(
