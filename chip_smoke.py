@@ -20,7 +20,13 @@ It imports nothing of JAX or of `flowmap_tpu`, and in order:
    radius below the displacements, where its window cuts); any mismatch
    raises. Prints each error and time, A's and D's C entry points timed
    alone, and how far two runs of the two backwards that use atomics (D's
-   sampling, E) differ;
+   sampling, E) differ. The two kernels of the flow precompute follow: the
+   softmax expectation (F) at GMFlow's window-attention shape with the
+   shifted-window mask as grouped bias, at its global-correlation shape with
+   the pixel grid as values, and at a length that fills no tile, with
+   float32 and bfloat16 inputs; the dense warp (G) at the consistency mask's
+   shape, both padding modes, coordinates several widths outside the image,
+   float32 and bfloat16;
 4. checks the whole train step (flow and tracking losses) on a small scene:
    one step through the kernels on the card against the same step on the
    CPU through the plain versions;
@@ -34,7 +40,15 @@ It imports nothing of JAX or of `flowmap_tpu`, and in order:
    losses must be finite and the tracking loss not zero. Prints steps/s and
    peak memory. Then the same step with `warp_impl="pallas"`, 1 warm-up
    and 2 timed steps: E must be launched on each, B on none;
-6. prints one JSON line with every kernel's launches, error and times, and
+6. drives the third path, the product's precompute at full width: a
+   150-frame 640x896 source video, the two crops, `compute_flows` with
+   GMFlow (float32, chunks of 8 pairs, random weights from a seed, both
+   directions) and the consistency masks, flow-chained tracks, and then 1
+   warm-up and 2 timed steps of the full step on those flows. F must be
+   launched 14 times per chunk and G once per direction; flows and masks
+   must be finite, masks in [0, 1]. Prints the precompute's wall time,
+   pairs/s and peak memory;
+7. prints one JSON line with every kernel's launches, error and times, and
    as the last line `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, when there is no card or when the port
@@ -55,6 +69,9 @@ TIMED_STEPS = 5
 # The second path (the bounded-radius warp in place of the shift warp).
 PALLAS_WARMUP_STEPS = 1
 PALLAS_TIMED_STEPS = 2
+# The third path (the flow precompute, then the step on its flows).
+PRECOMPUTE_WARMUP_STEPS = 1
+PRECOMPUTE_TIMED_STEPS = 2
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense; f32 without tensor cores
@@ -121,6 +138,23 @@ TOL = {
     # at most one bf16 ulp (2^-8 relative, so 2^-7 of the largest value).
     "warp_features_f32_rel": 1e-5,
     "warp_features_bf16_rel": 2.0 ** -7,
+    # Softmax expectation. Kernel and plain version both take their inputs
+    # (f32 or bf16) exactly and work in f32, so one tolerance serves both
+    # types; they differ in the order of a 128-term dot product and of the
+    # sums over the keys, and in the online rescaling. Attention values
+    # (d = 128): of the largest value. Expected coordinates (d = 2): in
+    # pixels, on coordinates up to 112, where an f32 sum over 8960 keys is
+    # good to a few 1e-4 px: the kernel is held to 1e-3 px against the plain
+    # version run in float64, and to 5e-3 px against the f32 plain version,
+    # whose own distance from float64 is the larger of the two (H100, the
+    # shapes of the check: plain up to 2.5e-3 px, kernel 2.0e-4).
+    "softmax_expectation_rel": 1e-4,
+    "softmax_expectation_px": 5e-3,
+    "softmax_expectation_px_f64": 1e-3,
+    # Dense warp: the plain version rounds where the kernel does and both do
+    # the same f32 operations in the same order (no contraction), in both
+    # compute types; the limit is the JAX package's own for this function.
+    "dense_warp_abs": 2e-5,
     # Whole step, GPU kernels vs CPU plain versions, f32.
     "step_loss_rel": 1e-3,
     "step_grad_rel": 1e-2,
@@ -230,6 +264,21 @@ def warp_features_bound(n: int, h: int, w: int, c: int, itemsize: int):
     each = 2 * n * h * w * c * itemsize + n * h * w * 2 * 4
     ops = n * h * w * c * 10.0
     return {"fwd": (each, ops), "bwd": (each, ops)}
+
+
+def softmax_expectation_bound(b: int, l: int, c: int, d: int, itemsize: int, bias_groups: int):
+    """F: q and k in (their type), values and the bias in (f32), result out;
+    both products, a multiply and an add per term, and ~8 operations per score
+    for the scale, bias, maximum, exponential and sum."""
+    nbytes = 2 * b * l * c * itemsize + 2 * b * l * d * 4 + bias_groups * l * l * 4
+    return nbytes, b * float(l) * l * (2 * (c + d) + 8)
+
+
+def dense_warp_bound(n: int, c: int, h: int, w: int, itemsize: int):
+    """G: coordinates (8 B a pixel) and the image in, the result (f32) out;
+    per pixel ~16 operations for the weights and 8 a channel."""
+    px = n * h * w
+    return px * 8 + px * c * itemsize + px * c * 4, px * (16.0 + 8 * c)
 
 
 def grads_of(out, inputs, g=None):
@@ -755,6 +804,177 @@ def check_warp_features(flows, model_cfg) -> list[dict]:
     return rows
 
 
+def check_correlation() -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from flowmap_tpu_torch.flow.gmflow import coords_grid, shift_window_attn_mask
+    from flowmap_tpu_torch.ops.kernels import correlation as corr
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    # GMFlow at 640x896: the 1/8 grid is 80x112; a chunk of 8 pairs is 16
+    # images, 64 windows of 40x56.
+    h8, w8, c = 80, 112, 128
+    lw, lg = (h8 // 2) * (w8 // 2), h8 * w8
+    mask = torch.as_tensor(shift_window_attn_mask(h8, w8, 2)).cuda()
+    grid = coords_grid(h8, w8, "cuda").reshape(lg, 2)
+    f0 = rnd(8, lg, c)
+    # A match 37 tokens away that scores ~9 above the rest: a peaked softmax.
+    f1 = 0.8 * torch.roll(f0, 37, dims=1) + 0.6 * rnd(8, lg, c)
+    rag_bias = torch.where(torch.rand((4, 450, 450), generator=gen, device="cuda") < 0.3, -100.0, 0.0)
+    cases = {
+        # name: (q, k, values, bias, limit, its unit, library's view of the batch)
+        "window": (rnd(64, lw, c), rnd(64, lw, c), rnd(64, lw, c), mask,
+                   "softmax_expectation_rel", "of max", (16, 4)),
+        "correlation": (f0, f1, grid[None].expand(8, lg, 2), None,
+                        "softmax_expectation_px", "px", (8, 1)),
+        # The pretrain windows' length: 450 = 7 * 64 + 2.
+        "ragged": (rnd(8, 450, c), rnd(8, 450, c), rnd(8, 450, c), rag_bias,
+                   "softmax_expectation_rel", "of max", (2, 4)),
+    }
+    rows = []
+    for name, (q, k, v, bias, tol, unit, (lb, lh)) in cases.items():
+        b, l, _ = q.shape
+        d = v.shape[-1]
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            qd, kd = q.to(dtype), k.to(dtype)
+            out_k = corr.softmax_expectation(qd, kd, v, bias)
+            torch.cuda.synchronize()
+            out_p = corr.softmax_expectation_plain(qd, kd, v, bias)
+            err = abs_err(out_k, out_p)
+            shown = err if unit == "px" else err / float(out_p.abs().max())
+            print(f"[F softmax_expectation {name} {tag}] ({b}, {l}, {c}) d={d} bias "
+                  f"{None if bias is None else tuple(bias.shape)}: max err {shown:.3e} {unit} "
+                  f"(max |plain| {float(out_p.abs().max()):.3f})", flush=True)
+            if name == "correlation":
+                # Both f32 versions against the plain version in float64.
+                out_64 = corr.softmax_expectation_plain(qd, kd, v, bias, dtype=torch.float64)
+                e_k64, e_p64 = abs_err(out_k, out_64), abs_err(out_p, out_64)
+                print(f"[F softmax_expectation {name} {tag}] against float64, max px: kernel "
+                      f"{e_k64:.3e}, plain {e_p64:.3e}", flush=True)
+                del out_64
+                if not e_k64 <= TOL["softmax_expectation_px_f64"]:
+                    fail(f"softmax_expectation {name} {tag} is off its float64 reference")
+            if not bool(torch.isfinite(out_k).all()) or not shown <= TOL[tol]:
+                fail(f"softmax_expectation {name} {tag} disagrees with its plain version")
+            if name == "ragged":
+                continue
+
+            def library():
+                # One PyTorch call for the same function: heads stand for the
+                # windows of one image, so that the mask broadcasts.
+                return F.scaled_dot_product_attention(
+                    qd.reshape(lb, lh, l, c), kd.reshape(lb, lh, l, c),
+                    v.to(dtype).reshape(lb, lh, l, d), attn_mask=None if bias is None else bias.to(dtype),
+                    scale=c**-0.5,
+                )
+
+            e_lib = abs_err(library().reshape(b, l, d), out_p)
+            ms = {
+                "k": time_ms(lambda: corr.softmax_expectation(qd, kd, v, bias), iters=5, warmup=1),
+                "p": time_ms(lambda: corr.softmax_expectation_plain(qd, kd, v, bias), iters=3, warmup=1),
+                "l": time_ms(library, iters=3, warmup=1),
+            }
+            nbytes, ops = softmax_expectation_bound(
+                b, l, c, d, qd.element_size(), 0 if bias is None else bias.shape[0])
+            b_ms, b_by = bound_ms(nbytes, ops, "float32")
+            print(f"[F softmax_expectation {name} {tag}] ms kernel {ms['k']:.4f}, plain {ms['p']:.4f}, "
+                  f"F.scaled_dot_product_attention {ms['l']:.4f} (max abs {e_lib:.2e} from plain), "
+                  f"bound {b_ms:.4f} by {b_by}: {ops / ms['k'] / 1e9:.2f} TFLOP/s", flush=True)
+            if dtype == torch.float32:
+                rows.append(dict(
+                    name=f"softmax_expectation_fwd_d{d}", route="cuda",
+                    source="flowmap_tpu_torch/ops/kernels/csrc/correlation.cu",
+                    replaces="flowmap_tpu/ops/pallas/correlation.py:" + ("116" if bias is None else "134"),
+                    max_abs_err=err, ms=ms["k"], plain_ms=ms["p"], bound_ms=b_ms, bound_by=b_by,
+                    library_ms=ms["l"],
+                ))
+        del out_k, out_p
+    return rows
+
+
+def check_dense_warp() -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from flowmap_tpu_torch.ops.kernels import dense_warp as dw
+    from flowmap_tpu_torch.training.flagship import NUM_FRAMES, SOURCE_SHAPE
+
+    n, c, (h, w) = NUM_FRAMES - 1, 3, SOURCE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    images = torch.rand((n, c, h, w), generator=gen, device="cuda")
+    ys, xs = torch.meshgrid(torch.arange(h, device="cuda"), torch.arange(w, device="cuda"),
+                            indexing="ij")
+    # A smooth displacement field of tens of pixels, as the flow of a scene is
+    # (noise at 1/64 of the resolution, enlarged: neighbouring samples lie
+    # ~0.5 px further apart than their pixels), and one pixel in 16 thrown
+    # up to three image sizes away.
+    smooth = F.interpolate(torch.randn((n, 2, h // 64, w // 64), generator=gen, device="cuda"),
+                           size=(h, w), mode="bilinear", align_corners=False) * 30
+    far = (torch.rand((n, 2, h, w), generator=gen, device="cuda") < 1 / 32).float()
+    jump = torch.randn((n, 2, h, w), generator=gen, device="cuda") * far
+    px = xs + smooth[:, 0] + jump[:, 0] * 3 * w
+    py = ys + smooth[:, 1] + jump[:, 1] * 3 * h
+    del smooth, far, jump
+    outside = float(((px < -1) | (px > w) | (py < -1) | (py > h)).float().mean())
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for mode in ("zeros", "border"):
+            out_k = dw.dense_warp_bilinear_planar(images, px, py, mode, dtype)
+            torch.cuda.synchronize()
+            out_p = dw.dense_warp_bilinear_planar_plain(images, px, py, mode, dtype)
+            err = abs_err(out_k, out_p)
+            print(f"[G dense_warp {tag} {mode}] ({n}, {c}, {h}, {w}), {outside:.1%} of the "
+                  f"samples outside the image: max abs err {err:.3e} "
+                  f"({int((out_k != out_p).sum())} of {out_k.numel()} values differ)", flush=True)
+            if not bool(torch.isfinite(out_k).all()) or not err <= TOL["dense_warp_abs"]:
+                fail(f"dense_warp {tag} {mode} disagrees with its plain version")
+            if (dtype, mode) != (torch.float32, "zeros"):
+                del out_k, out_p
+                continue
+            lib_grid = torch.stack([(2 * px + 1) / w - 1, (2 * py + 1) / h - 1], dim=-1)
+
+            def library():
+                return F.grid_sample(images, lib_grid, mode="bilinear", padding_mode="zeros",
+                                     align_corners=False)
+
+            # Far outside, the normalised grid has lost the fraction's low
+            # bits: the library's result is compared where the sample is near.
+            near = ((px.abs() < 2 * w) & (py.abs() < 2 * h))[:, None]
+            e_lib = float(((library() - out_p).abs() * near).max())
+            ms = {
+                "k": time_ms(lambda: dw.dense_warp_bilinear_planar(images, px, py, mode, dtype)),
+                "p": time_ms(lambda: dw.dense_warp_bilinear_planar_plain(images, px, py, mode, dtype),
+                             iters=3, warmup=1),
+                "l": time_ms(library),
+            }
+            b_ms, b_by = bound_ms(*dense_warp_bound(n, c, h, w, 4), "float32")
+            # The worst field: every sample displaced on its own (30 px of
+            # white noise), so that no two threads share a 32-byte sector.
+            nx = xs + torch.randn((n, h, w), generator=gen, device="cuda") * 30
+            ny = ys + torch.randn((n, h, w), generator=gen, device="cuda") * 30
+            ms_noise = time_ms(lambda: dw.dense_warp_bilinear_planar(images, nx, ny, mode, dtype))
+            del nx, ny
+            print(f"[G dense_warp] ms kernel {ms['k']:.4f} (on white-noise displacements "
+                  f"{ms_noise:.4f}), plain {ms['p']:.3f}, F.grid_sample {ms['l']:.4f} (max abs "
+                  f"{e_lib:.2e} from plain near the image), bound {b_ms:.4f} by {b_by}", flush=True)
+            rows.append(dict(
+                name="dense_warp_fwd", route="cuda",
+                source="flowmap_tpu_torch/ops/kernels/csrc/dense_warp.cu",
+                replaces="flowmap_tpu/ops/pallas/dense_warp.py:200",
+                max_abs_err=err, ms=ms["k"], plain_ms=ms["p"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=ms["l"],
+            ))
+            del out_k, out_p, lib_grid
+    return rows
+
+
 def check_small_step() -> None:
     """Two f32 train steps (flow and tracking losses) on a small scene:
     kernels on the card vs the plain versions on the CPU. Compares both
@@ -801,10 +1021,17 @@ def check_small_step() -> None:
         fail("the train step on the card disagrees with the CPU reference")
 
 
-def run_main_path(batch, flows, tracks, warp_impl: str, warmup: int, timed: int) -> dict:
+STEP_KERNELS = ("flow_loss", "shift_warp", "head_interior", "track", "warp_features")
+
+
+def run_main_path(batch, flows, tracks, warp_impl: str, warmup: int, timed: int,
+                  tag: str = "main", precomputed: bool = False) -> dict:
     """The full-width overfit step with both losses, on the shift warp
-    ("fused") or on the bounded-radius warp ("pallas"). Returns the launch
-    counts of this path's steps."""
+    ("fused") or on the bounded-radius warp ("pallas"). With `precomputed`
+    the flows and tracks are the precompute's own (GMFlow with random
+    weights): either warp may be selected by the radii, the launch counts
+    are left running from the precompute, and the tracking loss may be zero.
+    Returns the launch counts when the steps are done."""
     import torch
 
     from flowmap_tpu_torch.ops import kernels
@@ -815,18 +1042,19 @@ def run_main_path(batch, flows, tracks, warp_impl: str, warmup: int, timed: int)
         make_train_step,
     )
 
-    tag = f"main, warp_impl={warp_impl}"
+    tag = f"{tag}, warp_impl={warp_impl}"
     cfg = model_cfg(flows, warp_impl=warp_impl)
     bb = cfg.backbone
     ry, rx = bb.warp_radius_half, bb.warp_radius_half_x
     taps = (2 * ry + 2) * (2 * rx + 2)
     print(f"[{tag}] warp radii: full ({bb.warp_radius}, {bb.warp_radius_x}), "
           f"half ({ry}, {rx}), tap window {taps}", flush=True)
-    if taps > 256:
+    if taps > 256 and not precomputed:
         fail("the shift-warp branch is not taken at the main path's radii")
     # The warp this path must take, and the one it must leave alone.
-    used, unused = ("shift_warp", "warp_features") if warp_impl == "fused" else (
+    used, unused = ("shift_warp", "warp_features") if warp_impl == "fused" and taps <= 256 else (
         "warp_features", "shift_warp")
+    print(f"[{tag}] the weights path warps through {used}", flush=True)
 
     state = init_train_state(cfg, OverfitTrainerCfg(lr=3e-5), NUM_FRAMES, IMAGE_SHAPE)
     # The tracking loss's gate opens at step 50 in the product; here it is
@@ -836,7 +1064,9 @@ def run_main_path(batch, flows, tracks, warp_impl: str, warmup: int, timed: int)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    kernels.reset_launch_counts()
+    if not precomputed:
+        kernels.reset_launch_counts()
+    at_start = kernels.launch_counts()
     losses, tracking, step_times = [], [], []
     for i in range(warmup + timed):
         before = kernels.launch_counts()
@@ -845,7 +1075,8 @@ def run_main_path(batch, flows, tracks, warp_impl: str, warmup: int, timed: int)
         torch.cuda.synchronize()
         step_times.append(time.perf_counter() - t0)
         after = kernels.launch_counts()
-        idle = [k for k in after if after[k] <= before[k] and not k.startswith(unused)]
+        idle = [k for k in after if after[k] <= before[k] and k.startswith(STEP_KERNELS)
+                and not k.startswith(unused)]
         if idle:
             fail(f"[{tag}] step {i}: kernels not launched: {idle}")
         losses.append(float(metrics["loss/total"]))
@@ -861,11 +1092,71 @@ def run_main_path(batch, flows, tracks, warp_impl: str, warmup: int, timed: int)
           f"launches {launches}", flush=True)
     if not all(math.isfinite(x) for x in losses + tracking):
         fail(f"[{tag}] a loss is not finite")
-    if not all(x > 0 for x in tracking):
+    if not precomputed and not all(x > 0 for x in tracking):
         fail(f"[{tag}] the tracking loss is zero")
-    if any(v for k, v in launches.items() if k.startswith(unused)):
+    if any(launches[k] > at_start[k] for k in launches if k.startswith(unused)):
         fail(f"[{tag}] {unused} was launched on this path")
     return {k: v for k, v in launches.items() if not k.startswith(unused)}
+
+
+def run_precompute_path(frames: int) -> dict:
+    """The third path: the product's precompute at full width (source video,
+    crops, GMFlow both ways, consistency masks, flow-chained tracks), then the
+    full step on what it made. Returns the launch counts of the whole path."""
+    import torch
+
+    from flowmap_tpu_torch.flow.predictors import FlowPredictorGMFlowCfg
+    from flowmap_tpu_torch.ops import kernels
+    from flowmap_tpu_torch.training import flagship
+
+    tag = "precompute"
+    flow_cfg = FlowPredictorGMFlowCfg()
+    video = flagship.source_video("cuda", num_frames=frames)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch, flows, tracks = flagship.precompute(video, flow=flow_cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = kernels.launch_counts()
+
+    pairs = frames - 1
+    chunks = 2 * -(-pairs // flow_cfg.max_batch_size)  # both directions
+    h, w = flagship.IMAGE_SHAPE
+    fields = {"forward": flows.forward, "backward": flows.backward,
+              "forward_mask": flows.forward_mask, "backward_mask": flows.backward_mask}
+    for name, t in fields.items():
+        want = (1, pairs, h, w, 2) if "mask" not in name else (1, pairs, h, w)
+        if tuple(t.shape) != want or not bool(torch.isfinite(t).all()):
+            fail(f"[{tag}] flows.{name}: shape {tuple(t.shape)} (want {want}) or not finite")
+    for name in ("forward_mask", "backward_mask"):
+        if float(fields[name].min()) < 0.0 or float(fields[name].max()) > 1.0:
+            fail(f"[{tag}] flows.{name} leaves [0, 1]")
+    if tuple(batch.videos.shape) != (1, frames, 3, h, w):
+        fail(f"[{tag}] model batch shape {tuple(batch.videos.shape)}")
+    # Per chunk of pairs GMFlow runs 12 window attentions (d = 128), the
+    # global correlation and the propagation (d = 2); the mask is one dense
+    # warp per direction.
+    want_counts = {"softmax_expectation_fwd_d128": 12 * chunks,
+                   "softmax_expectation_fwd_d2": 2 * chunks, "dense_warp_fwd": 2}
+    got_counts = {k: counts[k] for k in want_counts}
+    if got_counts != want_counts:
+        fail(f"[{tag}] launches {got_counts}, expected {want_counts}")
+    flow_px = flows.forward.abs().amax(dim=(0, 1, 2, 3)) * torch.tensor([w, h], device="cuda")
+    print(f"[{tag}] {frames} frames {tuple(video.videos.shape[-2:])} -> flow batch "
+          f"{flagship.SOURCE_SHAPE}, model batch {(h, w)}; GMFlow {flow_cfg.compute_dtype}, "
+          f"{chunks} chunks of up to {flow_cfg.max_batch_size} pairs; launches {got_counts}; "
+          f"largest forward flow {[round(float(v), 2) for v in flow_px]} px at {(h, w)}; mask mean "
+          f"{float(flows.forward_mask.mean()):.4f}; tracks {tuple(tracks.xy.shape)}, "
+          f"{float(tracks.visibility.float().mean()):.3f} visible", flush=True)
+    print(f"[{tag}] wall time {wall:.3f} s", flush=True)
+    print(f"[{tag}] {2 * pairs / wall:.3f} pairs/s ({2 * pairs} pairs, both directions)", flush=True)
+    print(f"[{tag}] peak memory {peak:.2f} GiB", flush=True)
+    del video
+    return run_main_path(batch, flows, tracks, "fused", PRECOMPUTE_WARMUP_STEPS,
+                         PRECOMPUTE_TIMED_STEPS, tag="precompute, then the step", precomputed=True)
 
 
 def main() -> int:
@@ -907,6 +1198,8 @@ def main() -> int:
     rows += check_head()
     rows += check_track_loss(batch, depths, tracks)
     rows += check_warp_features(flows, cfg)
+    rows += check_correlation()
+    rows += check_dense_warp()
     check_small_step()
 
     # Each path's launches are counted over its own steps: the counts are set
@@ -918,6 +1211,12 @@ def main() -> int:
             batch, flows, tracks, "pallas", PALLAS_WARMUP_STEPS, PALLAS_TIMED_STEPS
         ).items()
         if k.startswith("warp_features")
+    })
+    del batch, flows, depths, tracks
+    torch.cuda.empty_cache()
+    launches.update({
+        k: v for k, v in run_precompute_path(flagship.NUM_FRAMES).items()
+        if k.startswith(("softmax_expectation", "dense_warp"))
     })
     for row in rows:
         row["launches"] = launches[row["name"]]

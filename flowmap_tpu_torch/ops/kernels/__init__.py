@@ -1,12 +1,20 @@
 """Hand-written Hopper kernels (CUDA C++ in `csrc/`), one module per kernel.
 
-Each module holds the kernel's `torch.autograd.Function` wrapper, its plain
-PyTorch version, and a `LAUNCHES` dict counting kernel launches per
-direction. A wrapper dispatches by device only: CPU tensors take the plain
+Each module holds the kernel's wrapper (a `torch.autograd.Function` where
+the kernel has a backward), its plain PyTorch version, and a `LAUNCHES` dict
+counting kernel launches per direction. A wrapper dispatches by device only: CPU tensors take the plain
 version, CUDA tensors take the kernel or raise.
 """
 
-from . import flow_loss, head_kernel, shift_warp, track_loss, warp_features
+from . import (
+    correlation,
+    dense_warp,
+    flow_loss,
+    head_kernel,
+    shift_warp,
+    track_loss,
+    warp_features,
+)
 
 KERNEL_MODULES = {
     "flow_loss": flow_loss,
@@ -14,6 +22,8 @@ KERNEL_MODULES = {
     "head_interior": head_kernel,
     "track": track_loss,
     "warp_features": warp_features,
+    "softmax_expectation": correlation,
+    "dense_warp": dense_warp,
 }
 
 

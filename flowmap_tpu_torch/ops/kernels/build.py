@@ -23,13 +23,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # Per-source extra flags. The warps and the losses reproduce PyTorch's
-# elementwise rounding, so multiply-add contraction is off there.
+# elementwise rounding, so multiply-add contraction is off there; the two
+# matrix-product kernels (head, correlation) accumulate with fused
+# multiply-adds.
 SOURCES = {
     "flow_loss": ["--fmad=false"],
     "shift_warp": ["--fmad=false"],
     "head_kernel": [],
     "track_loss": ["--fmad=false"],
     "warp_features": ["--fmad=false"],
+    "correlation": [],
+    "dense_warp": ["--fmad=false"],
 }
 
 _BASE_FLAGS = [

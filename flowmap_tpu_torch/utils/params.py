@@ -15,6 +15,8 @@ Module names mirror the JAX keys, so the mapping is mechanical:
 their gradients. `tracks_from_numpy` and `tracks_packed_from_numpy` build the
 port's track types from the arrays of the JAX package's (or of any other
 source), so that a test can hand the same tracks to both.
+`gmflow_state_dict_from_jax` turns the JAX package's flat GMFlow parameters
+into a state dict for `flow/gmflow.py:GMFlow`.
 """
 
 from __future__ import annotations
@@ -59,6 +61,20 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
     """State dict for `FlowMapModel.load_state_dict` from a JAX param tree."""
     return {torch_name(path): jax_leaf_to_torch(path, leaf) for path, leaf in _flatten(tree)}
 
+def gmflow_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's flat GMFlow parameters (keyed by the public
+    checkpoint's names; HWIO convolutions, (in, out) linears; NumPy arrays or
+    anything `np.asarray` takes) as a state dict in PyTorch's layout: the
+    inverse of that package's `convert_torch_state_dict`."""
+    out = {}
+    for name, value in params.items():
+        arr = np.asarray(value, dtype=np.float32)
+        if arr.ndim == 4:  # HWIO -> OIHW
+            arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 2:  # (in, out) -> (out, in)
+            arr = arr.T
+        out[name] = torch.from_numpy(np.array(arr, copy=True))
+    return out
 
 
 def tracks_from_numpy(xy, visibility, start_frame: int, device="cpu") -> Tracks:

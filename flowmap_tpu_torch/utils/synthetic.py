@@ -1,7 +1,8 @@
 """Synthetic rigid scene for tests and chip runs (NumPy math, torch outputs).
 
 Counterpart of `flowmap_tpu/utils/synthetic.py` (`make_scene`,
-`make_track_segments`, `make_tracks`), with its own copy of the NumPy helpers: a piecewise-planar world, a smooth camera arc and
+`make_track_segments`, `make_tracks`), with its own copy of the NumPy
+helpers: a piecewise-planar world, a smooth camera arc and
 ground-truth intrinsics; per-frame depth from closed-form ray/plane
 intersection, and the exact pose/depth-induced flow as the observed flow.
 The scene is built on the host and returned as tensors on `device`. The
@@ -107,12 +108,31 @@ def _plane_depths(xy: np.ndarray, k: np.ndarray, poses: np.ndarray) -> np.ndarra
     return np.where(np.isfinite(best), best, 50.0).astype(np.float32)
 
 
-def make_scene_arrays(cfg: SyntheticSceneCfg) -> dict[str, np.ndarray]:
-    """The scene as NumPy arrays (videos, extrinsics, intrinsics, flows, masks, depths)."""
+def make_video_arrays(cfg: SyntheticSceneCfg) -> dict[str, np.ndarray]:
+    """The scene's video and ground-truth cameras alone (videos, indices,
+    extrinsics, intrinsics): what a source video at a large shape needs,
+    without the per-pixel geometry."""
     f = cfg.num_frames
     h, w = cfg.image_shape
-    poses = _camera_trajectory(f)
+    u = np.linspace(0, 8 * np.pi, w)
+    v = np.linspace(0, 8 * np.pi, h)
+    tex = 0.5 + 0.25 * (np.sin(u)[None, :] + np.cos(v)[:, None])
+    videos = np.broadcast_to(tex.astype(np.float32)[None, None, None], (1, f, 3, h, w))
     k = _np_k(cfg.focal_length, h, w)
+    return {
+        "videos": np.ascontiguousarray(videos),
+        "indices": np.arange(f)[None],
+        "extrinsics": _camera_trajectory(f)[None],
+        "intrinsics": np.ascontiguousarray(np.broadcast_to(k, (1, f, 3, 3))),
+    }
+
+
+def make_scene_arrays(cfg: SyntheticSceneCfg) -> dict[str, np.ndarray]:
+    """The scene as NumPy arrays (videos, extrinsics, intrinsics, flows, masks, depths)."""
+    h, w = cfg.image_shape
+    video = make_video_arrays(cfg)
+    poses = video["extrinsics"][0]
+    k = video["intrinsics"][0, 0]
     xy = _np_grid(h, w)
     depths = _plane_depths(xy, k, poses)[None]  # (1, f, h, w)
     surfaces = _np_unproject(xy, depths, k)  # (1, f, h, w, 3)
@@ -126,15 +146,8 @@ def make_scene_arrays(cfg: SyntheticSceneCfg) -> dict[str, np.ndarray]:
     def in_frame_mask(flowed):
         return (np.all(flowed >= 0.0, axis=-1) & np.all(flowed < 1.0, axis=-1)).astype(np.float32)
 
-    u = np.linspace(0, 8 * np.pi, w)
-    v = np.linspace(0, 8 * np.pi, h)
-    tex = 0.5 + 0.25 * (np.sin(u)[None, :] + np.cos(v)[:, None])
-    videos = np.broadcast_to(tex.astype(np.float32)[None, None, None], (1, f, 3, h, w))
     return {
-        "videos": np.ascontiguousarray(videos),
-        "indices": np.arange(f)[None],
-        "extrinsics": poses[None],
-        "intrinsics": np.ascontiguousarray(np.broadcast_to(k, (1, f, 3, 3))),
+        **video,
         "forward": flow_fwd.astype(np.float32),
         "backward": flow_bwd.astype(np.float32),
         "forward_mask": in_frame_mask(flow_fwd + xy),
@@ -143,16 +156,27 @@ def make_scene_arrays(cfg: SyntheticSceneCfg) -> dict[str, np.ndarray]:
     }
 
 
+def _as_batch(a: dict[str, torch.Tensor]) -> Batch:
+    return Batch(
+        videos=a["videos"], indices=a["indices"], extrinsics=a["extrinsics"],
+        intrinsics=a["intrinsics"], scenes=("synthetic",), datasets=("synthetic",),
+    )
+
+
+def make_video(cfg: SyntheticSceneCfg, device: str | torch.device = "cuda") -> Batch:
+    """The scene's video with its ground-truth cameras on `device`, at any
+    shape: no flows and no depths are made."""
+    device = resolve_device(device)
+    return _as_batch({k: torch.as_tensor(v).to(device) for k, v in make_video_arrays(cfg).items()})
+
+
 def make_scene(
     cfg: SyntheticSceneCfg, device: str | torch.device = "cuda"
 ) -> tuple[Batch, Flows, torch.Tensor]:
     """(batch with GT cameras, exact flows, GT depths (1, f, h, w)) on `device`."""
     device = resolve_device(device)
     a = {k: torch.as_tensor(v).to(device) for k, v in make_scene_arrays(cfg).items()}
-    batch = Batch(
-        videos=a["videos"], indices=a["indices"], extrinsics=a["extrinsics"],
-        intrinsics=a["intrinsics"], scenes=("synthetic",), datasets=("synthetic",),
-    )
+    batch = _as_batch(a)
     flows = Flows(
         forward=a["forward"], backward=a["backward"],
         forward_mask=a["forward_mask"], backward_mask=a["backward_mask"],

@@ -1,10 +1,14 @@
 #!/usr/bin/env python
-"""Where the time of the port's overfit step goes, on one NVIDIA GPU.
+"""Where the time of the port's overfit step, or of one GMFlow chunk of its
+flow precompute, goes on one NVIDIA GPU.
 
 Runs the port's flagship configuration (`flowmap_tpu_torch/training/
 flagship.py`: 150 frames at 160x224, MiDaS-small bf16 with folded BN,
 softmin intrinsics, Procrustes extrinsics, flow and tracking losses with the
-tracking loss enabled from step 0), then traces a few steps with `torch.profiler` and prints:
+tracking loss enabled from step 0), then traces a few steps with
+`torch.profiler`. With `--gmflow` it traces the flow predictor instead: one
+chunk of 8 frame pairs at 640x896 per step (GMFlow, float32, random weights
+from a seed), as the precompute runs 38 of for a 150-frame scene. Prints:
 
 - the card's name and power limit, steps/s of the traced window;
 - device time by kernel (top N by total CUDA time, summed over the steps);
@@ -14,7 +18,7 @@ tracking loss enabled from step 0), then traces a few steps with `torch.profiler
 
 Usage (from the root of a checkout, on a machine with the card):
 
-    python3 scripts/torch_step_profile.py [--steps 3] [--top 30] [--trace PATH]
+    python3 scripts/torch_step_profile.py [--gmflow] [--steps 3] [--top 30] [--trace PATH]
 
 `--trace` also writes the Chrome trace of the traced steps to PATH.
 """
@@ -33,10 +37,14 @@ REPO = Path(__file__).resolve().parents[1]
 CATEGORIES = [
     ("repo kernels", ("flow_loss_kernel", "shift_warp_", "conv3x3_kernel",
                       "conv3x3_mma_kernel", "head_tail_", "wgrad_kernel", "wgrad_mma_kernel",
-                      "track_sample_", "track_pair_kernel", "warp_features_")),
-    ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "xmma", "sm90_", "dgrad",
-                             "wgrad", "cutlass")),
+                      "track_sample_", "track_pair_kernel", "warp_features_",
+                      "softmax_expectation_kernel", "dense_warp_kernel")),
+    # A name that says convolution first; then a GEMM (cuBLAS's carry "xmma"
+    # or "cutlass" too); what is left of those families is cuDNN's.
+    ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad",
+                             "_fft", "pointwise_mult_and_sum_complex")),
     ("GEMM", ("gemm", "Gemm", "matmul")),
+    ("convolution (cuDNN)", ("xmma", "sm90_", "cutlass")),
     ("optimizer", ("multi_tensor", "adam", "Adam")),
     ("reduction", ("reduce", "Reduce")),
     ("copy / layout", ("copy", "Copy", "memcpy", "Memcpy", "memset", "Memset",
@@ -54,6 +62,8 @@ def category(name: str) -> str:
 
 def main() -> int:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--gmflow", action="store_true",
+                        help="trace one GMFlow chunk (8 pairs at 640x896) per step")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=30)
     parser.add_argument("--trace", type=Path, default=None)
@@ -80,19 +90,35 @@ def main() -> int:
     )
 
     build.build_all()
-    batch, flows, depths = flagship.scene("cuda")
-    tracks = flagship.tracks(batch, depths)
-    cfg = flagship.model_cfg(flows)
-    state = init_train_state(cfg, OverfitTrainerCfg(), flagship.NUM_FRAMES, flagship.IMAGE_SHAPE)
-    step = make_train_step(cfg, flagship.loss_cfgs(tracking_after=0))
+    if args.gmflow:
+        from flowmap_tpu_torch.flow.gmflow import GMFlowPredictor
+        from flowmap_tpu_torch.flow.predictors import FlowPredictorGMFlowCfg
+
+        torch.backends.cudnn.allow_tf32 = False  # float32 as the precompute's checks run it
+        cfg = FlowPredictorGMFlowCfg()
+        predictor = GMFlowPredictor(cfg, "cuda")
+        video = flagship.source_video("cuda", num_frames=cfg.max_batch_size + 1).videos
+
+        def run():
+            predictor(video)
+    else:
+        batch, flows, depths = flagship.scene("cuda")
+        tracks = flagship.tracks(batch, depths)
+        cfg = flagship.model_cfg(flows)
+        state = init_train_state(cfg, OverfitTrainerCfg(), flagship.NUM_FRAMES, flagship.IMAGE_SHAPE)
+        step = make_train_step(cfg, flagship.loss_cfgs(tracking_after=0))
+
+        def run():
+            step(state, batch, flows, tracks)
+
     for _ in range(3):
-        step(state, batch, flows, tracks)
+        run()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(state, batch, flows, tracks)
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(f"traced {args.steps} steps: {args.steps / wall:.4f} steps/s, "

@@ -217,3 +217,77 @@ def test_warp_features_kernel_matches_plain(cuda, max_dy, wg):
         (d_want,) = torch.autograd.grad(want, feats, g)
         assert d_got.dtype == dtype
         assert float((d_got.float() - d_want.float()).abs().max()) <= tol * float(d_want.abs().max())
+
+
+@pytest.mark.parametrize("case", [
+    dict(b=8, length=700, c=128, d=128, groups=4),  # attention: 700 = 10 * 64 + 60
+    dict(b=3, length=1000, c=128, d=2, groups=0),  # expected coordinates, no bias
+    dict(b=4, length=130, c=16, d=8, groups=4),  # a per-batch bias
+    dict(b=2, length=64, c=16, d=2, groups=1),  # one full tile
+])
+def test_softmax_expectation_kernel_matches_plain(cuda, case):
+    """float32 and bfloat16 inputs, lengths that fill no tile, a grouped
+    bias of 0 / -100 with one query row masked everywhere: 1e-4 of the
+    largest value (d = 2: against the plain version in float64)."""
+    from flowmap_tpu_torch.ops.kernels.correlation import (
+        softmax_expectation,
+        softmax_expectation_plain,
+    )
+
+    b, length, c, d, groups = (case[k] for k in ("b", "length", "c", "d", "groups"))
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k = (torch.randn((b, length, c), generator=gen, device=cuda) for _ in range(2))
+    v = torch.rand((b, length, d), generator=gen, device=cuda) * (100.0 if d == 2 else 1.0)
+    bias = None
+    if groups:
+        bias = torch.where(torch.rand((groups, length, length), generator=gen, device=cuda) < 0.3,
+                           -100.0, 0.0)
+        bias[0, 5] = -100.0
+    for dtype in (torch.float32, torch.bfloat16):
+        got = softmax_expectation(q.to(dtype), k.to(dtype), v, bias)
+        want = softmax_expectation_plain(
+            q.to(dtype), k.to(dtype), v, bias, dtype=torch.float64 if d == 2 else torch.float32)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_softmax_expectation_kernel_raises_on_what_it_does_not_take(cuda):
+    from flowmap_tpu_torch.ops.kernels import correlation
+
+    q = torch.randn((2, 64, 32), device=cuda)
+    with pytest.raises(ValueError, match="not compiled in"):
+        correlation.softmax_expectation(q, q, q)
+    before = dict(correlation.LAUNCHES)
+    q = torch.randn((2, 64, 16), device=cuda)
+    v = torch.randn((2, 64, 8), device=cuda)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        correlation.softmax_expectation(q.requires_grad_(True), q, v)
+    with pytest.raises(ValueError, match="dividing"):
+        correlation.softmax_expectation(q.detach(), q.detach(), v, torch.zeros((3, 64, 64), device=cuda))
+    assert correlation.LAUNCHES == before
+    correlation.softmax_expectation(q.detach(), q.detach(), v)
+    assert correlation.LAUNCHES["fwd_d8"] == before["fwd_d8"] + 1
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_dense_warp_kernel_matches_plain(cuda, padding_mode):
+    """Odd sizes, a grid of another size than the image, coordinates far
+    outside it: float32 and bfloat16 equal to 2e-5; the backward raises."""
+    from flowmap_tpu_torch.ops.kernels.dense_warp import (
+        dense_warp_bilinear,
+        dense_warp_bilinear_planar_plain,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    images = torch.rand((3, 5, 37, 53), generator=gen, device=cuda)
+    xy = torch.rand((3, 29, 41, 2), generator=gen, device=cuda) * torch.tensor([80.0, 60.0], device=cuda) - 12
+    xy[0, 0, :4] = torch.tensor([[-1e30, 1e30], [1e9, -1e9], [-0.5, 36.5], [52.0, 0.0]], device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = dense_warp_bilinear(images, xy, padding_mode, dtype)
+        want = dense_warp_bilinear_planar_plain(images, xy[..., 0], xy[..., 1], padding_mode, dtype)
+        assert got.dtype == torch.float32 and tuple(got.shape) == (3, 5, 29, 41)
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= 2e-5
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        dense_warp_bilinear(images.requires_grad_(True), xy, padding_mode).sum().backward()
