@@ -26,7 +26,12 @@ It imports nothing of JAX or of `flowmap_tpu`, and in order:
    the pixel grid as values, and at a length that fills no tile, with
    float32 and bfloat16 inputs; the dense warp (G) at the consistency mask's
    shape, both padding modes, coordinates several widths outside the image,
-   float32 and bfloat16;
+   float32 and bfloat16. The two kernels of the weight paths follow, forward
+   and backward, float32 and bfloat16, each parameter gradient the same bits
+   on a second run: the fused weight MLP (I) on 149 x 80 x 112 pixels, and
+   the full-resolution corr weights (H) on (150, 80, 112, 64) features with
+   the scene's full-resolution grid, at the autosized radius (which must be
+   6 or below) and at radius 0, where the window drops corners;
 4. checks the whole train step (flow and tracking losses) on a small scene:
    one step through the kernels on the card against the same step on the
    CPU through the plain versions;
@@ -39,7 +44,12 @@ It imports nothing of JAX or of `flowmap_tpu`, and in order:
    steps. The launch counters of A, B, C and D must rise on every step; the
    losses must be finite and the tracking loss not zero. Prints steps/s and
    peak memory. Then the same step with `warp_impl="pallas"`, 1 warm-up
-   and 2 timed steps: E must be launched on each, B on none;
+   and 2 timed steps: E must be launched on each, B on none. Then the
+   fourth and fifth paths, the same scene through `run_overfit` (a fetch and
+   `on_validation` after each of 4 steps): with `weights_resolution="full"`
+   H must be launched forward and backward on every step (and B, E, I
+   never), with `fused_weight_mlp=True` I on every step (and H, E never).
+   Prints steps/s and peak memory of each;
 6. drives the third path, the product's precompute at full width: a
    150-frame 640x896 source video, the two crops, `compute_flows` with
    GMFlow (float32, chunks of 8 pairs, random weights from a seed, both
@@ -72,6 +82,9 @@ PALLAS_TIMED_STEPS = 2
 # The third path (the flow precompute, then the step on its flows).
 PRECOMPUTE_WARMUP_STEPS = 1
 PRECOMPUTE_TIMED_STEPS = 2
+# The fourth and fifth paths (run_overfit on the full-resolution weights and
+# on the fused weight MLP): steps, each followed by a fetch.
+OVERFIT_STEPS = 4
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense; f32 without tensor cores
@@ -155,6 +168,28 @@ TOL = {
     # the same f32 operations in the same order (no contraction), in both
     # compute types; the limit is the JAX package's own for this function.
     "dense_warp_abs": 2e-5,
+    # Weight MLP (I) and corr weights (H). f32: three-pass TF32 on the
+    # tensor cores against f32 matmuls (each ~1e-6 relative), another
+    # summation order; the gradients are compared in relative L2 because a
+    # pre-activation within rounding of 0 may take either side of a relu
+    # in the two versions, which moves that pixel's gradients by a whole
+    # term. Of 85 M hidden values ~1e-6 lie that close to 0, and each flip
+    # adds one term to sums of ~1e6 random-sign terms: I's bias gradient db1,
+    # which takes no product in the backward, only the masks, differed by
+    # 1.0e-3 in relative L2 (H100, 1.3 M pixels), as did every other
+    # gradient but dw2 and db2 (2e-6), which no mask touches. bf16: both
+    # round at the same points, but a last-bit
+    # difference in an f32 sum can tip one rounding by an ulp (2^-8), which
+    # the next layers carry. H's values are sigmoids, held to the JAX
+    # package's limits for its kernel against `corr_weights_ref`: 2e-5 in
+    # f32 (a first limit of 1e-5 failed at 1.06e-5 on the H100) and 0.03 in
+    # bf16.
+    "weight_mlp_f32_rel": 1e-5,
+    "weight_mlp_bf16_rel": 1e-2,
+    "corr_weights_f32_abs": 2e-5,
+    "corr_weights_bf16_abs": 3e-2,
+    "mlp_f32_grad_rel_l2": 3e-3,
+    "mlp_bf16_grad_rel_l2": 3e-2,
     # Whole step, GPU kernels vs CPU plain versions, f32.
     "step_loss_rel": 1e-3,
     "step_grad_rel": 1e-2,
@@ -279,6 +314,31 @@ def dense_warp_bound(n: int, c: int, h: int, w: int, itemsize: int):
     per pixel ~16 operations for the weights and 8 a channel."""
     px = n * h * w
     return px * 8 + px * c * itemsize + px * c * 4, px * (16.0 + 8 * c)
+
+
+# Operations of the weight MLP a pixel: 2 (128 x 128 + 128 x 64 + 64).
+MLP_OPS = 2.0 * (128 * 128 + 128 * 64 + 64)
+
+
+def weight_mlp_bound(p: int, itemsize: int):
+    """I: wa and la in, f32 logits out; the three products. Backward: wa, la
+    and the f32 cotangent in, dwa and dla out; counting only the gradients'
+    products (dx0, d_in, dW0, dW1), not the forward's recomputation."""
+    fwd = 2 * p * 64 * itemsize + p * 4
+    grads = 2.0 * (64 * 128 + 128 * 128 + 128 * 128 + 64 * 128)
+    return {"fwd": (fwd, p * MLP_OPS), "bwd": (fwd + 2 * p * 64 * itemsize, p * grads)}
+
+
+def corr_weights_bound(n: int, hn: int, wn: int, itemsize: int):
+    """H: native features (n + 1 frames) and the f32 grid in, f32 weights
+    out; the MLP at every full-resolution pixel. Backward: features, grid and
+    the f32 cotangent in, the feature gradient out; counting only the
+    gradients, twice the MLP's operations (the interpolation's ~13 taps of
+    64 channels a pixel are under 2% and left out)."""
+    px = n * 4 * hn * wn
+    feats = (n + 1) * hn * wn * 64 * itemsize
+    fwd = feats + px * 8 + px * 4
+    return {"fwd": (fwd, px * MLP_OPS), "bwd": (feats * 2 + px * 8 + px * 4, 2 * px * MLP_OPS)}
 
 
 def grads_of(out, inputs, g=None):
@@ -975,6 +1035,157 @@ def check_dense_warp() -> list[dict]:
     return rows
 
 
+def mlp_params(dtype, gen, scale: float = 1.0):
+    """(w0, b0, w1, b1, w2, b2) on the card as leaves: weights in `dtype`
+    with the Kaiming scale of the backbone's init (times `scale` on the first
+    layer), biases f32."""
+    import torch
+
+    def rnd(*shape, s):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    params = (rnd(128, 128, s=scale * (2 / 128) ** 0.5).to(dtype), rnd(128, s=0.1),
+              rnd(64, 128, s=(2 / 128) ** 0.5).to(dtype), rnd(64, s=0.1),
+              rnd(1, 64, s=(2 / 64) ** 0.5).to(dtype), rnd(1, s=0.1))
+    return [t.requires_grad_(True) for t in params]
+
+
+def mlp_rows(kernel: str, source: str, replaces: tuple[str, str], bounds, errs, ms) -> list[dict]:
+    rows = []
+    for d, line in zip(("fwd", "bwd"), replaces):
+        b_ms, b_by = bound_ms(*bounds[d], "bfloat16")
+        rows.append(dict(
+            name=f"{kernel}_{d}", route="cuda", source=source, replaces=line,
+            max_abs_err=errs[d], ms=ms[d], plain_ms=ms[f"{d}_plain"], bound_ms=b_ms,
+            bound_by=b_by, library_ms=None,
+        ))
+    return rows
+
+
+def compare_mlp_kernel(tag, name, run_k, run_p, inputs, g, out_tol, grad_tol, out_abs=False):
+    """Forward and backward of a kernel against its plain version; returns
+    (outputs, max abs errors). Gradients in relative L2 over every input;
+    the parameter gradients of a second kernel run must be the same bits."""
+    import torch
+
+    out_k, out_p = run_k(), run_p()
+    e_out = abs_err(out_k, out_p) if out_abs else rel_err(out_k, out_p)
+    d_k = grads_of(out_k, inputs, g)
+    d_p = grads_of(out_p, inputs, g)
+    e_grad = max(rel_l2(a, b) for a, b in zip(d_k, d_p))
+    again = grads_of(out_k, inputs, g)
+    same_params = all(torch.equal(a, b) for a, b in zip(again[-6:], d_k[-6:]))
+    n_in = int((again[0] != d_k[0]).sum())
+    print(f"[{tag}] {name}: fwd max {'abs' if out_abs else 'rel'} {e_out:.3e}, "
+          f"grads worst rel L2 {e_grad:.3e} (per input "
+          f"{[float('%.2e' % rel_l2(a, b)) for a, b in zip(d_k, d_p)]}); second run: "
+          f"parameter gradients {'equal' if same_params else 'DIFFER'}, "
+          f"{n_in} of {d_k[0].numel()} input-gradient values differ", flush=True)
+    if e_out > out_tol or e_grad > grad_tol:
+        fail(f"{tag} {name} disagrees with its plain version")
+    if not same_params:
+        fail(f"{tag}: the parameter gradients are not the same bits on a second run")
+    errs = {"fwd": abs_err(out_k, out_p),
+            "bwd": max(abs_err(a, b) for a, b in zip(d_k, d_p))}
+    return (out_k, out_p), errs
+
+
+def check_weight_mlp() -> list[dict]:
+    """I at the native path's shape: 149 x 80 x 112 pixels, f32 and bf16."""
+    import torch
+
+    from flowmap_tpu_torch.ops.kernels import weight_mlp as wm
+    from flowmap_tpu_torch.training.flagship import IMAGE_SHAPE, NUM_FRAMES
+
+    p = (NUM_FRAMES - 1) * (IMAGE_SHAPE[0] // 2) * (IMAGE_SHAPE[1] // 2)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        wa, la = (torch.randn((p, 64), generator=gen, device="cuda").mul_(0.5).to(dtype)
+                  .requires_grad_(True) for _ in range(2))
+        params = mlp_params(dtype, gen)
+        inputs = [wa, la, *params]
+        g = torch.randn(p, generator=gen, device="cuda")
+        (out_k, out_p), errs = compare_mlp_kernel(
+            "I weight_mlp", name, lambda: wm.weight_mlp(*inputs), lambda: wm.weight_mlp_plain(*inputs),
+            inputs, g, TOL[f"weight_mlp_{name}_rel"], TOL[f"mlp_{name}_grad_rel_l2"])
+        if dtype != torch.bfloat16:
+            continue
+        ms = {
+            "fwd": time_ms(lambda: wm.weight_mlp(*inputs)),
+            "fwd_plain": time_ms(lambda: wm.weight_mlp_plain(*inputs), iters=3),
+            "bwd": time_ms(lambda: grads_of(out_k, inputs, g)),
+            "bwd_plain": time_ms(lambda: grads_of(out_p, inputs, g), iters=3),
+        }
+        print(f"[I weight_mlp] bf16 ms {ms}", flush=True)
+        rows += mlp_rows("weight_mlp", "flowmap_tpu_torch/ops/kernels/csrc/weight_mlp.cu",
+                         ("flowmap_tpu/ops/pallas/weight_mlp.py:158",
+                          "flowmap_tpu/ops/pallas/weight_mlp.py:182"),
+                         weight_mlp_bound(p, 2), errs, ms)
+    return rows
+
+
+def check_corr_weights(flows, radius: int) -> list[dict]:
+    """H at the full-resolution path's shapes: native features (150, 80,
+    112, 64), the scene's full-resolution grid, the autosized radius and a
+    radius of 0 (where the window drops corners), f32 and bf16."""
+    import torch
+
+    from flowmap_tpu_torch.ops.geometry import sample_image_grid
+    from flowmap_tpu_torch.ops.kernels import corr_weights as cw
+    from flowmap_tpu_torch.training.flagship import IMAGE_SHAPE, NUM_FRAMES
+
+    h, w = IMAGE_SHAPE
+    xy, _ = sample_image_grid((h, w), "cuda")
+    grid = ((xy + flows.backward[0].float()) * 2.0 - 1.0).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        feats = torch.randn((NUM_FRAMES, h // 2, w // 2, 64), generator=gen, device="cuda")
+        feats = feats.to(dtype).requires_grad_(True)
+        # A first layer 3x the init's scale spreads the weights over (0, 1).
+        params = mlp_params(dtype, gen, scale=3.0)
+        inputs = [feats, *params]
+        g = torch.randn((NUM_FRAMES - 1, h, w), generator=gen, device="cuda")
+        outs = {}
+        for r in (radius, 0):
+            outs[r], errs = compare_mlp_kernel(
+                "H corr_weights", f"{name} radius {r}",
+                lambda: cw.corr_weights(feats, grid, *params, r),
+                lambda: cw.corr_weights_plain(feats, grid, *params, r),
+                inputs, g, TOL[f"corr_weights_{name}_abs"], TOL[f"mlp_{name}_grad_rel_l2"],
+                out_abs=True)
+            if r == radius:
+                keep = errs
+            else:  # only its weights are needed now; free the plain graph
+                outs[r] = (outs[r][0].detach(), None)
+        cut = abs_err(outs[radius][0], outs[0][0])
+        print(f"[H corr_weights] {name}: radius 0 moves the weights by up to {cut:.3f}; "
+              f"weights in [{float(outs[radius][0].min()):.4f}, "
+              f"{float(outs[radius][0].max()):.4f}]", flush=True)
+        if not cut > 1e-3:
+            fail("corr_weights: radius 0 cut nothing, the window is not exercised")
+        out_k, out_p = outs[radius]
+        del outs
+        if dtype != torch.bfloat16:
+            continue
+        ms = {
+            "fwd": time_ms(lambda: cw.corr_weights(feats, grid, *params, radius)),
+            "fwd_plain": time_ms(lambda: cw.corr_weights_plain(feats, grid, *params, radius),
+                                 iters=2, warmup=1),
+            "bwd": time_ms(lambda: grads_of(out_k, inputs, g)),
+            "bwd_plain": time_ms(lambda: grads_of(out_p, inputs, g), iters=2, warmup=1),
+        }
+        print(f"[H corr_weights] bf16 ms {ms}", flush=True)
+        rows += mlp_rows("corr_weights", "flowmap_tpu_torch/ops/kernels/csrc/corr_weights.cu",
+                         ("flowmap_tpu/ops/pallas/corr_weights.py:468",
+                          "flowmap_tpu/ops/pallas/corr_weights.py:944"),
+                         corr_weights_bound(NUM_FRAMES - 1, h // 2, w // 2, 2), keep, ms)
+    return rows
+
+
 def check_small_step() -> None:
     """Two f32 train steps (flow and tracking losses) on a small scene:
     kernels on the card vs the plain versions on the CPU. Compares both
@@ -1099,6 +1310,67 @@ def run_main_path(batch, flows, tracks, warp_impl: str, warmup: int, timed: int,
     return {k: v for k, v in launches.items() if not k.startswith(unused)}
 
 
+def run_overfit_path(batch, flows, tracks, options: dict, kernel: str, steps: int,
+                     tag: str) -> dict:
+    """The flagship scene through `run_overfit` with a weight path of this
+    slice (`options` for `flagship.model_cfg`), flow and tracking losses,
+    `steps` steps with a fetch after each. `kernel` (H "corr_weights" or I
+    "weight_mlp") must be launched forward and backward on every step, and
+    the warps that the path bypasses never. Returns the path's launches."""
+    import torch
+
+    from flowmap_tpu_torch.ops import kernels
+    from flowmap_tpu_torch.training.flagship import loss_cfgs, model_cfg
+    from flowmap_tpu_torch.training.overfit import OverfitTrainerCfg, run_overfit
+
+    cfg = model_cfg(flows, **options).backbone
+    print(f"[{tag}] {options}: warp radii full ({cfg.warp_radius}, {cfg.warp_radius_x}), "
+          f"half ({cfg.warp_radius_half}, {cfg.warp_radius_half_x})", flush=True)
+    unused = {"corr_weights": ("shift_warp", "warp_features", "weight_mlp"),
+              "weight_mlp": ("corr_weights", "warp_features")}[kernel]
+    seen, times, fetched = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    last = dict(kernels.launch_counts())
+
+    def on_validation(state, step, metrics):
+        nonlocal last
+        times.append(time.perf_counter())
+        now = kernels.launch_counts()
+        idle = [k for k in now if now[k] <= last[k]
+                and k.startswith(STEP_KERNELS + (kernel,)) and not k.startswith(unused)]
+        if idle:
+            fail(f"[{tag}] step {step}: kernels not launched: {idle}")
+        last = dict(now)
+        seen.append(step)
+        fetched.append((metrics["loss/total"], metrics["loss/tracking"]))
+
+    t0 = time.perf_counter()
+    _, info = run_overfit(model_cfg(flows, **options), loss_cfgs(tracking_after=0),
+                          OverfitTrainerCfg(max_steps=steps, val_check_interval=1),
+                          batch, flows, tracks, on_validation=on_validation)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_times = [b - a for a, b in zip([t0] + times[:-1], times)]
+    sps = (len(times) - 1) / (times[-1] - times[0])
+    print(f"[{tag}] losses (total, tracking) {fetched}", flush=True)
+    print(f"[{tag}] run_overfit: {steps} steps in {info['optimization_runtime']:.3f} s; "
+          f"{sps:.4f} steps/s over the last {len(times) - 1} (step times s "
+          f"{[round(t, 4) for t in step_times]}, the first with set-up), peak memory "
+          f"{peak:.2f} GiB, launches {launches}", flush=True)
+    if seen != list(range(1, steps + 1)):
+        fail(f"[{tag}] on_validation saw steps {seen}")
+    if not all(math.isfinite(x) for pair in fetched for x in pair) or not all(
+            t > 0 for _, t in fetched):
+        fail(f"[{tag}] a loss is not finite, or the tracking loss is zero")
+    if any(launches[k] > 0 for k in launches if k.startswith(unused)):
+        fail(f"[{tag}] a bypassed kernel was launched: {launches}")
+    if not launches[f"{kernel}_fwd"] == launches[f"{kernel}_bwd"] == steps:
+        fail(f"[{tag}] {kernel} launched {launches} times, not once a step each way")
+    return {k: v for k, v in launches.items() if k.startswith(kernel)}
+
+
 def run_precompute_path(frames: int) -> dict:
     """The third path: the product's precompute at full width (source video,
     crops, GMFlow both ways, consistency masks, flow-chained tracks), then the
@@ -1200,6 +1472,13 @@ def main() -> int:
     rows += check_warp_features(flows, cfg)
     rows += check_correlation()
     rows += check_dense_warp()
+    full_radius = flagship.model_cfg(flows, weights_resolution="full").backbone.warp_radius
+    print(f"[H corr_weights] the flagship scene's full-resolution radius: {full_radius}",
+          flush=True)
+    if full_radius > 6:
+        fail("the full-resolution radius exceeds 6: the corr-weights kernel would not run")
+    rows += check_weight_mlp()
+    rows += check_corr_weights(flows, full_radius)
     check_small_step()
 
     # Each path's launches are counted over its own steps: the counts are set
@@ -1212,6 +1491,10 @@ def main() -> int:
         ).items()
         if k.startswith("warp_features")
     })
+    launches.update(run_overfit_path(batch, flows, tracks, dict(weights_resolution="full"),
+                                     "corr_weights", OVERFIT_STEPS, "fourth path, full weights"))
+    launches.update(run_overfit_path(batch, flows, tracks, dict(fused_weight_mlp=True),
+                                     "weight_mlp", OVERFIT_STEPS, "fifth path, fused weight MLP"))
     del batch, flows, depths, tracks
     torch.cuda.empty_cache()
     launches.update({

@@ -1,21 +1,31 @@
-"""MiDaS depth backbone + correspondence-weight MLP (native-resolution weights).
+"""MiDaS depth backbone + correspondence-weight MLP.
 
 Counterpart of `flowmap_tpu/model/backbone/backbone_midas.py` (reference
 `flowmap/model/backbone/backbone_midas.py:16-127`). Depth mapping
-("original": 1e3 / (x + 0.1), "exp": exp(x / 1000) + 0.01) and the
-native-resolution weight path (`:188-289`): the 2x2-pooled backward flow
-warps the half-resolution decoder features (divided by 20), a 3-layer MLP
-with a split first layer scores each pixel, sigmoid then clip at 1e-4, and
-the scalar weight map is upsampled to full resolution. The warp is the
-shift-window kernel (`ops/kernels/shift_warp.py`) while the tap window is at
-most 256 and `warp_impl` is "fused" or "matmul"; otherwise the
-bounded-radius kernel (`ops/kernels/warp_features.py`) for "fused" and
-"pallas", the windowed one-hot matmul (`ops/warp.py`) for "matmul", and
-`grid_sample_2d` for "gather".
+("original": 1e3 / (x + 0.1), "exp": exp(x / 1000) + 0.01) and the three
+weight paths, taken on the JAX package's conditions:
 
-Not ported yet (they raise NotImplementedError): the full-resolution weight
-path (`weights_resolution="full"`, kernel H), the fused weight-MLP option
-(kernel I), and DPT_Large.
+- Native resolution (`weights_resolution="native"`, `:188-289`): the
+  2x2-pooled backward flow warps the half-resolution decoder features
+  (divided by 20), a 3-layer MLP with a split first layer scores each pixel,
+  sigmoid then clip at 1e-4, and the scalar weight map is upsampled to full
+  resolution. The warp is the shift-window kernel (`ops/kernels/shift_warp.py`)
+  while the tap window is at most 256 and `warp_impl` is "fused" or "matmul";
+  otherwise the bounded-radius kernel (`ops/kernels/warp_features.py`) for
+  "fused" and "pallas", the windowed one-hot matmul (`ops/warp.py`) for
+  "matmul", and `grid_sample_2d` for "gather". `fused_weight_mlp=True` runs
+  the MLP as one kernel (`ops/kernels/weight_mlp.py`) in place of the einsum
+  chain.
+- Full resolution, fused (`weights_resolution="full"`, `:296-316`): with
+  `warp_impl="fused"`, batch 1, 64 channels, h % 16 == 0, wn <= 128 and a
+  radius of at most 6, one kernel computes the x2 upsample, the warp and
+  the MLP from the native features (`ops/kernels/corr_weights.py`).
+- Full resolution, unfused (`:318-364`): the features are upsampled x2 and
+  divided by 20, warped at full resolution (the bounded-radius kernel for
+  "fused" and "pallas", the matmul warp, or `grid_sample_2d`), and the MLP
+  runs on every full-resolution pixel.
+
+DPT_Large is not ported yet (it raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -28,8 +38,10 @@ import torch.nn as nn
 
 from ...ops.geometry import earlier, later, sample_image_grid
 from ...ops.grid_sample import grid_sample_2d
+from ...ops.kernels.corr_weights import corr_weights, prepare_params
 from ...ops.kernels.shift_warp import warp_shifts
 from ...ops.kernels.warp_features import warp_features
+from ...ops.kernels.weight_mlp import weight_mlp
 from ...ops.resize import resize_bilinear
 from ...ops.warp import warp_bilinear_matmul
 from ...types import BackboneOutput, Batch, Flows
@@ -115,14 +127,64 @@ class BackboneMidas(nn.Module):
         if cfg.weight_sensitivity is not None:
             weights = torch.sigmoid(cfg.weight_sensitivity * self.weights)[None]
             return BackboneOutput(depths=depths, weights=weights)
-        if cfg.weights_resolution != "native" or (2 * hn, 2 * wn) != (h, w):
-            raise NotImplementedError(
-                "the full-resolution weight path (corr_weights / warp_features "
-                "kernels) is not ported yet"
-            )
-        if cfg.fused_weight_mlp:
-            raise NotImplementedError("the fused weight-MLP kernel is not ported yet")
+        if cfg.weights_resolution == "native" and (2 * hn, 2 * wn) == (h, w):
+            weights = self._native_weights(features, flows, b, f, h, w, dtype)
+            return BackboneOutput(depths=depths, weights=weights)
 
+        xy, _ = sample_image_grid((h, w), features.device, torch.float32)
+        grid = ((xy + flows.backward.float()) * 2.0 - 1.0).detach()  # (b, f-1, h, w, 2)
+        if (
+            cfg.warp_impl == "fused"
+            and b == 1
+            and cn == 64
+            and (2 * hn, 2 * wn) == (h, w)
+            and h % 16 == 0
+            and wn <= 128
+            and cfg.warp_radius <= 6
+        ):
+            # Upsample, warp and MLP in one pass from the native features.
+            weights = corr_weights(
+                features.permute(0, 2, 3, 1),
+                grid[0],
+                *prepare_params(self.corr_weighter, dtype),
+                cfg.warp_radius,
+            )[None]
+            return BackboneOutput(depths=depths, weights=weights)
+
+        features = (resize_bilinear(features, (h, w)) / 20.0).reshape(b, f, cn, h, w)
+        flat_feats = earlier(features).reshape(b * (f - 1), cn, h, w)
+        flat_grid = grid.reshape(b * (f - 1), h, w, 2)
+        if cfg.warp_impl in ("fused", "pallas"):
+            warped = warp_features(flat_feats, flat_grid, cfg.warp_radius)
+        elif cfg.warp_impl == "matmul":
+            warped = warp_bilinear_matmul(flat_feats, flat_grid, radius=cfg.warp_radius)
+        else:
+            warped = grid_sample_2d(flat_feats, flat_grid, padding_mode="zeros")
+        later_f = later(features).reshape(b * (f - 1), cn, h, w)
+        logits = self._einsum_logits(warped.permute(0, 2, 3, 1), later_f.permute(0, 2, 3, 1), dtype)
+        weights = torch.clamp(torch.sigmoid(logits), min=1e-4)
+        return BackboneOutput(depths=depths, weights=weights.reshape(b, f - 1, h, w))
+
+    def _einsum_logits(self, warped, later_f, dtype) -> torch.Tensor:
+        """The MLP on NHWC halves as an einsum chain: f32 logits (n, h, w).
+        The first layer splits: W @ [warped; later] = W_a warped + W_b later."""
+        cn = warped.shape[-1]
+        layer0 = self.corr_weighter[0]
+        w0 = layer0.weight.to(dtype)
+        x = (
+            torch.einsum("nhwc,kc->nhwk", warped, w0[:, :cn])
+            + torch.einsum("nhwc,kc->nhwk", later_f, w0[:, cn:])
+            + layer0.bias.to(dtype)
+        )
+        for layer in self.corr_weighter[1:]:
+            x = torch.relu(x)
+            x = x @ layer.weight.to(dtype).t() + layer.bias.to(dtype)
+        return x.float()[..., 0]
+
+    def _native_weights(self, features, flows, b, f, h, w, dtype) -> torch.Tensor:
+        """Weights from the native-resolution warp and MLP, upsampled."""
+        cfg = self.cfg
+        cn, hn, wn = features.shape[1:]
         # 2x2-mean-pooled backward flow and the half-resolution sampling grid.
         fb = flows.backward.float()
         fb_half = fb.reshape(b, f - 1, hn, 2, wn, 2, 2).mean(dim=(3, 5))
@@ -151,18 +213,22 @@ class BackboneMidas(nn.Module):
             warped = warped.permute(0, 2, 3, 1)
             later_f = later(feats).reshape(b * (f - 1), cn, hn, wn).permute(0, 2, 3, 1)
 
-        # Split first layer: W @ [warped; later] = W_a warped + W_b later.
-        layer0 = self.corr_weighter[0]
-        w0 = layer0.weight.to(dtype)
-        x = (
-            torch.einsum("nhwc,kc->nhwk", warped, w0[:, :cn])
-            + torch.einsum("nhwc,kc->nhwk", later_f, w0[:, cn:])
-            + layer0.bias.to(dtype)
-        )
-        for layer in self.corr_weighter[1:]:
-            x = torch.relu(x)
-            x = x @ layer.weight.to(dtype).t() + layer.bias.to(dtype)
-        logits = x.float()[..., 0]
+        if cfg.fused_weight_mlp and len(self.corr_weighter) == 3:
+            # The fused per-pixel MLP: no 128- or 64-wide intermediate
+            # reaches device memory.
+            l0, l1, l2 = self.corr_weighter
+            n_pix = b * (f - 1) * hn * wn
+
+            def bias(layer):
+                return layer.bias.to(dtype).float()
+
+            logits = weight_mlp(
+                warped.reshape(n_pix, cn), later_f.reshape(n_pix, cn),
+                l0.weight.to(dtype), bias(l0), l1.weight.to(dtype), bias(l1),
+                l2.weight.to(dtype), bias(l2),
+            ).reshape(b * (f - 1), hn, wn)
+        else:
+            logits = self._einsum_logits(warped, later_f, dtype)
         weights_half = torch.clamp(torch.sigmoid(logits), min=1e-4)
         weights = resize_bilinear(weights_half[:, None], (h, w))[:, 0]
-        return BackboneOutput(depths=depths, weights=weights.reshape(b, f - 1, h, w))
+        return weights.reshape(b, f - 1, h, w)

@@ -7,6 +7,7 @@ version, CUDA tensors take the kernel or raise.
 """
 
 from . import (
+    corr_weights,
     correlation,
     dense_warp,
     flow_loss,
@@ -14,6 +15,7 @@ from . import (
     shift_warp,
     track_loss,
     warp_features,
+    weight_mlp,
 )
 
 KERNEL_MODULES = {
@@ -24,6 +26,8 @@ KERNEL_MODULES = {
     "warp_features": warp_features,
     "softmax_expectation": correlation,
     "dense_warp": dense_warp,
+    "weight_mlp": weight_mlp,
+    "corr_weights": corr_weights,
 }
 
 

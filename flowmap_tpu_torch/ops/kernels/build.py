@@ -23,9 +23,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # Per-source extra flags. The warps and the losses reproduce PyTorch's
-# elementwise rounding, so multiply-add contraction is off there; the two
-# matrix-product kernels (head, correlation) accumulate with fused
-# multiply-adds.
+# elementwise rounding, so multiply-add contraction is off there; the
+# matrix-product kernels (head, correlation, the two weight-MLP kernels)
+# accumulate with fused multiply-adds.
 SOURCES = {
     "flow_loss": ["--fmad=false"],
     "shift_warp": ["--fmad=false"],
@@ -34,6 +34,8 @@ SOURCES = {
     "warp_features": ["--fmad=false"],
     "correlation": [],
     "dense_warp": ["--fmad=false"],
+    "weight_mlp": [],
+    "corr_weights": [],
 }
 
 _BASE_FLAGS = [

@@ -99,14 +99,22 @@ def loss_cfgs(tracking_after: int = 50) -> list[LossCfg]:
 
 
 def model_cfg(
-    flows: Flows, compute_dtype: str = "bfloat16", warp_impl: str = "fused"
+    flows: Flows,
+    compute_dtype: str = "bfloat16",
+    warp_impl: str = "fused",
+    weights_resolution: str = "native",
+    fused_weight_mlp: bool = False,
 ) -> ModelCfg:
     """The flagship model with its warp radii sized from `flows`. `warp_impl`
     "pallas" takes the bounded-radius warp kernel at any radius, which
-    "fused" takes only when the shift-warp's tap window exceeds 256."""
+    "fused" takes only when the shift-warp's tap window exceeds 256.
+    `weights_resolution="full"` is the reference's formulation (with "fused"
+    and a full-resolution radius of at most 6, the corr-weights kernel);
+    `fused_weight_mlp` runs the native path's MLP as one kernel."""
     cfg = ModelCfg(
         backbone=BackboneMidasCfg(
-            mapping="exp", bn="folded", compute_dtype=compute_dtype, warp_impl=warp_impl
+            mapping="exp", bn="folded", compute_dtype=compute_dtype, warp_impl=warp_impl,
+            weights_resolution=weights_resolution, fused_weight_mlp=fused_weight_mlp,
         ),
         intrinsics=IntrinsicsSoftminCfg(regression=RegressionCfg(after_step=1000, window=100)),
         extrinsics=ExtrinsicsProcrustesCfg(num_points=1000),

@@ -1,7 +1,7 @@
-"""Per-scene overfitting: the train step the product runs.
+"""Per-scene overfitting: the train step and the loop the product runs.
 
 Counterpart of `flowmap_tpu/training/overfit.py` (`init_train_state`,
-`make_train_step`, `_autosize_warp_radius`; reference
+`make_train_step`, `_autosize_warp_radius`, `run_overfit`; reference
 `model_wrapper_overfit.py`). One step is the model forward, the losses,
 one backward and one Adam update, run eagerly. `torch.optim.Adam` with its
 defaults (betas 0.9/0.999, eps 1e-8, no weight decay) computes optax.adam's
@@ -13,6 +13,7 @@ softmin stage), so the Adam step counts match.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
@@ -22,13 +23,29 @@ from ..loss.loss import LossCfg, compute_losses
 from ..model.intrinsics import maybe_handoff_focal
 from ..model.model import FlowMapModel, ModelCfg, ModelState, forward, init_model
 from ..ops.warp import radius_for_flows
+from ..tracking.tracking import pack_tracks
 from ..types import Batch, Flows
 
 
 @dataclass(frozen=True)
 class OverfitTrainerCfg:
+    """The JAX package's trainer settings. `steps_per_program` steps run
+    between two metric fetches (the JAX package scans them inside one
+    compiled program; here they are plain eager steps, so the history is the
+    same). `staged_vjp` is accepted and changes nothing: the JAX package's
+    explicitly chained VJPs are the same chain rule that autograd applies.
+    `sharding` "auto" is the single-device step on one card; frame sharding
+    over several cards is not ported yet, and `collectives="explicit"`
+    raises."""
+
     lr: float = 3e-5
+    max_steps: int = 2000
+    val_check_interval: int = 50
     seed: int = 0
+    staged_vjp: bool = False
+    steps_per_program: int = 1
+    sharding: str = "auto"
+    collectives: str = "gspmd"
 
 
 @dataclass
@@ -137,3 +154,69 @@ def _autosize_warp_radius(model_cfg: ModelCfg, flows: Flows, height: int) -> Mod
         ),
     )
 
+
+
+def _merge_init_params(model: torch.nn.Module, init_params: dict) -> None:
+    """Non-strict, weights-only load (reference overfit.py:89-92): entries
+    that the model lacks or whose shape differs keep their initialization;
+    the optimizer state starts afresh."""
+    own = model.state_dict()
+    loadable = {
+        k: v for k, v in init_params.items()
+        if k in own and tuple(own[k].shape) == tuple(v.shape)
+    }
+    model.load_state_dict(loadable, strict=False)
+
+
+def run_overfit(
+    model_cfg: ModelCfg,
+    loss_cfgs: Sequence[LossCfg],
+    trainer_cfg: OverfitTrainerCfg,
+    batch: Batch,
+    flows: Flows,
+    tracks=None,
+    on_validation: Optional[Callable] = None,
+    init_params: Optional[dict] = None,
+) -> tuple[TrainState, dict]:
+    """Run the overfitting schedule on the device of `batch`.
+
+    `init_params` is a state dict (for example `utils/params.py:
+    from_jax_params` of the JAX package's parameters), merged non-strictly
+    into the fresh model. A ragged list of track segments is packed first.
+    The warp radii are sized from `flows`. Every `val_check_interval` steps
+    (and after the last) the last step's metrics are fetched to the host,
+    appended to the history and passed to `on_validation(state, step,
+    metrics)`. Returns the final state and `{"history": {name: [values]},
+    "optimization_runtime": seconds}`."""
+    if trainer_cfg.collectives == "explicit":
+        raise NotImplementedError(
+            "explicit collectives belong to frame sharding over several cards, "
+            "which is not ported yet"
+        )
+    _, f, _, h, w = batch.videos.shape
+    state = init_train_state(model_cfg, trainer_cfg, f, (h, w), batch.videos.device)
+    if init_params is not None:
+        _merge_init_params(state.model, init_params)
+    if isinstance(tracks, (list, tuple)) and len(tracks) > 0:
+        tracks = pack_tracks(list(tracks), f)
+
+    model_cfg = _autosize_warp_radius(model_cfg, flows, h)
+    train_step = make_train_step(model_cfg, loss_cfgs, seed=trainer_cfg.seed + 1)
+    interval = min(trainer_cfg.val_check_interval, trainer_cfg.max_steps)
+    per_call = min(trainer_cfg.steps_per_program, interval) if trainer_cfg.steps_per_program > 1 else 1
+
+    t_start = time.time()
+    history: dict[str, list] = {}
+    steps_done = 0
+    while steps_done < trainer_cfg.max_steps:
+        for _ in range(per_call):
+            metrics = train_step(state, batch, flows, tracks)
+        steps_done += per_call
+        if steps_done % interval != 0 and steps_done < trainer_cfg.max_steps:
+            continue
+        fetched = {k: float(v) for k, v in metrics.items()}
+        for k, v in fetched.items():
+            history.setdefault(k, []).append(v)
+        if on_validation is not None:
+            on_validation(state, steps_done, fetched)
+    return state, {"history": history, "optimization_runtime": time.time() - t_start}

@@ -19,8 +19,13 @@ from a seed), as the precompute runs 38 of for a 150-frame scene. Prints:
 Usage (from the root of a checkout, on a machine with the card):
 
     python3 scripts/torch_step_profile.py [--gmflow] [--steps 3] [--top 30] [--trace PATH]
+        [--weights-resolution native|full] [--fused-weight-mlp]
 
 `--trace` also writes the Chrome trace of the traced steps to PATH.
+`--weights-resolution full` traces the step on the full-resolution weight
+path (the corr-weights kernel) and `--fused-weight-mlp` the native path with
+the fused weight-MLP kernel, the variants of `chip_smoke.py`'s fourth and
+fifth paths.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ CATEGORIES = [
     ("repo kernels", ("flow_loss_kernel", "shift_warp_", "conv3x3_kernel",
                       "conv3x3_mma_kernel", "head_tail_", "wgrad_kernel", "wgrad_mma_kernel",
                       "track_sample_", "track_pair_kernel", "warp_features_",
-                      "softmax_expectation_kernel", "dense_warp_kernel")),
+                      "softmax_expectation_kernel", "dense_warp_kernel", "weight_mlp_",
+                      "corr_weights_", "reduce_partials")),
     # A name that says convolution first; then a GEMM (cuBLAS's carry "xmma"
     # or "cutlass" too); what is left of those families is cuDNN's.
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad",
@@ -67,6 +73,8 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=30)
     parser.add_argument("--trace", type=Path, default=None)
+    parser.add_argument("--weights-resolution", choices=("native", "full"), default="native")
+    parser.add_argument("--fused-weight-mlp", action="store_true")
     args = parser.parse_args()
 
     sys.path.insert(0, str(REPO))
@@ -104,7 +112,8 @@ def main() -> int:
     else:
         batch, flows, depths = flagship.scene("cuda")
         tracks = flagship.tracks(batch, depths)
-        cfg = flagship.model_cfg(flows)
+        cfg = flagship.model_cfg(flows, weights_resolution=args.weights_resolution,
+                                 fused_weight_mlp=args.fused_weight_mlp)
         state = init_train_state(cfg, OverfitTrainerCfg(), flagship.NUM_FRAMES, flagship.IMAGE_SHAPE)
         step = make_train_step(cfg, flagship.loss_cfgs(tracking_after=0))
 

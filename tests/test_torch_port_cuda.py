@@ -291,3 +291,82 @@ def test_dense_warp_kernel_matches_plain(cuda, padding_mode):
         assert float((got - want).abs().max()) <= 2e-5
     with pytest.raises(NotImplementedError, match="forward-only"):
         dense_warp_bilinear(images.requires_grad_(True), xy, padding_mode).sum().backward()
+
+
+def _mlp_params(device, dtype, gen, scale=1.0):
+    """(w0, b0, w1, b1, w2, b2): weights in `dtype`, biases f32, as leaves."""
+    def rnd(*shape, s):
+        return (torch.randn(shape, generator=gen, device=device) * s)
+
+    params = (rnd(128, 128, s=scale / 128 ** 0.5).to(dtype), rnd(128, s=0.1),
+              rnd(64, 128, s=1 / 128 ** 0.5).to(dtype), rnd(64, s=0.1),
+              rnd(1, 64, s=1 / 8).to(dtype), rnd(1, s=0.1))
+    return [p.requires_grad_(True) for p in params]
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / max(float(b.double().norm()), 1e-30))
+
+
+@pytest.mark.parametrize("p", [37, 1500])
+def test_weight_mlp_kernel_matches_plain(cuda, p):
+    """Pixel counts that fill no tile: float32 (three-pass TF32) to 1e-5 of
+    the largest logit, gradients to 1e-4 in relative L2; bfloat16 (the same
+    roundings, another f32 order) to 1e-2 and 3e-2. The parameter gradients
+    are the same bits on a second run (fixed-order partials)."""
+    from flowmap_tpu_torch.ops.kernels import weight_mlp as wm
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for dtype, tol, tol_g in ((torch.float32, 1e-5, 1e-4), (torch.bfloat16, 1e-2, 3e-2)):
+        wa, la = (torch.randn((p, 64), generator=gen, device=cuda).to(dtype).requires_grad_(True)
+                  for _ in range(2))
+        params = _mlp_params(cuda, dtype, gen)
+        g = torch.randn(p, generator=gen, device=cuda)
+        before = wm.LAUNCHES["bwd"]
+        out_k = wm.weight_mlp(wa, la, *params)
+        out_p = wm.weight_mlp_plain(wa, la, *params)
+        scale = float(out_p.abs().max())
+        assert float((out_k - out_p).abs().max()) <= tol * scale
+        d_k = torch.autograd.grad(out_k, [wa, la, *params], g, retain_graph=True)
+        d_p = torch.autograd.grad(out_p, [wa, la, *params], g)
+        assert wm.LAUNCHES["bwd"] == before + 1
+        for a, b in zip(d_k, d_p):
+            assert a.dtype == b.dtype and _rel_l2(a, b) <= tol_g
+        again = torch.autograd.grad(out_k, [wa, la, *params], g)
+        assert all(torch.equal(a, b) for a, b in zip(again, d_k))
+
+
+@pytest.mark.parametrize("max_dy,radius", [(2.5, 3), (4.5, 1)])
+def test_corr_weights_kernel_matches_plain(cuda, max_dy, radius):
+    """Native 13x21 (a pixel count that fills no tile), displacements within
+    the radius and beyond it (the window drops corners in both versions);
+    float32 to 1e-5, gradients to 1e-4 relative L2; bfloat16 to 3e-2 and
+    3e-2; the grid gets no gradient; the wrapper refuses radius 7."""
+    from flowmap_tpu_torch.ops.kernels import corr_weights as cw
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    f, hn, wn = 3, 13, 21
+    h, w = 2 * hn, 2 * wn
+    ys, xs = (torch.arange(h, device=cuda) + 0.5) / h, (torch.arange(w, device=cuda) + 0.5) / w
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    flow = (torch.rand((f - 1, h, w, 2), generator=gen, device=cuda) - 0.5) * 2
+    flow = flow * torch.tensor([2.5 / w, max_dy / h], device=cuda)
+    grid = ((torch.stack([gx, gy], -1) + flow) * 2 - 1).contiguous()
+    for dtype, tol, tol_g in ((torch.float32, 1e-5, 1e-4), (torch.bfloat16, 3e-2, 3e-2)):
+        feats = torch.randn((f, hn, wn, 64), generator=gen, device=cuda).to(dtype)
+        feats.requires_grad_(True)
+        params = _mlp_params(cuda, dtype, gen, scale=3.0)
+        g = torch.randn((f - 1, h, w), generator=gen, device=cuda)
+        out_k = cw.corr_weights(feats, grid, *params, radius)
+        out_p = cw.corr_weights_plain(feats, grid, *params, radius)
+        assert out_k.shape == (f - 1, h, w) and out_k.dtype == torch.float32
+        assert float((out_k - out_p).abs().max()) <= tol
+        d_k = torch.autograd.grad(out_k, [feats, *params], g)
+        d_p = torch.autograd.grad(out_p, [feats, *params], g)
+        for a, b in zip(d_k, d_p):
+            assert a.dtype == b.dtype and _rel_l2(a, b) <= tol_g
+    t_grid = grid.clone().requires_grad_(True)
+    out = cw.corr_weights(feats, t_grid, *params, radius)
+    assert torch.autograd.grad(out.sum(), t_grid, allow_unused=True)[0] is None
+    with pytest.raises(ValueError, match="radius"):
+        cw.corr_weights(feats, grid, *params, 7)

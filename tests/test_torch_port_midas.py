@@ -62,16 +62,17 @@ def test_midas_small_original_mapping_relu():
     assert rel(y_t, y_j) < 2e-4
 
 
-def _backbone_outputs(warp_impl="fused", half_radii=None):
+def _backbone_outputs(warp_impl="fused", half_radii=None, **options):
     """Both backbones on the first three frames of a 20-frame scene (small
-    inter-frame flow), the radii autosized or set to `half_radii`."""
+    inter-frame flow), the radii autosized or set to `half_radii`; `options`
+    (`weights_resolution`, `fused_weight_mlp`) go to both configs."""
     import dataclasses
 
     batch_j, flows_j, _ = j_make_scene(JSceneCfg(num_frames=20, image_shape=(64, 64)))
     batch_j = batch_j.replace(videos=batch_j.videos[:, :3], indices=batch_j.indices[:, :3])
     flows_j = jax.tree_util.tree_map(lambda a: a[:, :2], flows_j)
     j_cfg = JCfg(pretrained=False, mapping="exp", bn="folded", compute_dtype="float32",
-                 warp_impl=warp_impl)
+                 warp_impl=warp_impl, **options)
     j_model_cfg = j_autosize(
         ModelCfg(backbone=j_cfg, intrinsics=IntrinsicsSoftminCfg(),
                  extrinsics=ExtrinsicsProcrustesCfg()),
@@ -89,7 +90,7 @@ def _backbone_outputs(warp_impl="fused", half_radii=None):
         mapping="exp", bn="folded", compute_dtype="float32", warp_impl=warp_impl,
         warp_radius=j_cfg.warp_radius, warp_radius_x=j_cfg.warp_radius_x,
         warp_radius_half=j_cfg.warp_radius_half,
-        warp_radius_half_x=j_cfg.warp_radius_half_x,
+        warp_radius_half_x=j_cfg.warp_radius_half_x, **options,
     )
     backbone = BackboneMidas(t_cfg)
     backbone.load_state_dict(from_jax_params(params), strict=True)
@@ -131,17 +132,50 @@ def test_backbone_midas_warp_branches(warp_impl, half_radii, monkeypatch):
     assert rel(out_t.weights, out_j.weights) < 2e-4
 
 
+@pytest.mark.parametrize("warp_impl", ["fused", "pallas", "matmul", "gather"])
+def test_backbone_midas_full_resolution_weights(warp_impl, monkeypatch):
+    """`weights_resolution="full"` on every warp: "fused" takes the
+    corr-weights kernel (the autosized full-resolution radius is within 6),
+    the others upsample the features and warp them at full resolution.
+    Weights within 2e-4 of their max."""
+    from flowmap_tpu_torch.model.backbone import backbone_midas as module
+
+    calls = []
+    real = module.corr_weights
+    monkeypatch.setattr(module, "corr_weights", lambda *a: calls.append(a[-1]) or real(*a))
+    out_t, out_j = _backbone_outputs(warp_impl, weights_resolution="full")
+    assert out_t.weights.shape == (1, 2, 64, 64)
+    assert rel(out_t.depths, out_j.depths) < 2e-4
+    assert rel(out_t.weights, out_j.weights) < 2e-4
+    assert len(calls) == (warp_impl == "fused") and all(r <= 6 for r in calls)
+
+
+@pytest.mark.parametrize("half_radii", [None, (8, 8)])
+def test_backbone_midas_fused_weight_mlp(half_radii, monkeypatch):
+    """`fused_weight_mlp=True` on the native path, with the shift warp
+    (autosized radii) and with the bounded-radius warp (half radii 8 x 8):
+    the MLP runs through the weight-MLP wrapper; weights within 2e-4 of
+    their max."""
+    from flowmap_tpu_torch.model.backbone import backbone_midas as module
+
+    calls = []
+    real = module.weight_mlp
+    monkeypatch.setattr(module, "weight_mlp", lambda *a: calls.append(1) or real(*a))
+    out_t, out_j = _backbone_outputs("fused", half_radii, fused_weight_mlp=True)
+    assert rel(out_t.depths, out_j.depths) < 2e-4
+    assert rel(out_t.weights, out_j.weights) < 2e-4
+    assert calls == [1]
+
+
 def test_unported_branches_raise():
+    """DPT_Large still raises; a tap window above 256 runs the bounded-radius
+    warp. (The full-resolution and fused weight-MLP branches are ported and
+    held against the JAX package by the two tests above.)"""
     batch = Batch(videos=torch.zeros(1, 2, 3, 32, 32), indices=torch.arange(2)[None])
     flows = Flows(torch.zeros(1, 1, 32, 32, 2), torch.zeros(1, 1, 32, 32, 2),
                   torch.ones(1, 1, 32, 32), torch.ones(1, 1, 32, 32))
-    for unported in (dict(weights_resolution="full"), dict(fused_weight_mlp=True)):
-        backbone = BackboneMidas(BackboneMidasCfg(compute_dtype="float32", **unported))
-        with pytest.raises(NotImplementedError):
-            backbone(batch, flows)
     with pytest.raises(NotImplementedError):
         BackboneMidas(BackboneMidasCfg(model="DPT_Large"))
-    # A tap window above 256 is ported now: it runs the bounded-radius warp.
     wide = BackboneMidas(BackboneMidasCfg(compute_dtype="float32", warp_radius_half=8,
                                           warp_radius_half_x=8))
     with torch.no_grad():
